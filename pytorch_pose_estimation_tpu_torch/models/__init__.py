@@ -1,0 +1,19 @@
+from .convert import from_jax_variables, load_state_dict_file
+from .darknet import Darknet19
+from .initialize import lecun_normal_
+from .layers import ConvBn, ConvBnAct, ConvBnRelu, DeconvBnRelu
+from .sbp import SBP
+from .summary import count_params
+
+__all__ = [
+    "ConvBn",
+    "ConvBnAct",
+    "ConvBnRelu",
+    "Darknet19",
+    "DeconvBnRelu",
+    "SBP",
+    "count_params",
+    "from_jax_variables",
+    "lecun_normal_",
+    "load_state_dict_file",
+]

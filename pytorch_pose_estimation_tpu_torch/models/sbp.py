@@ -1,0 +1,46 @@
+"""SBP detector: Simple Baselines for Human Pose Estimation.
+
+Counterpart of pytorch_pose_estimation_tpu/models/sbp.py (reference:
+models/detector/sbp.py:10-49): darknet19 features (1024 ch, stride 32) ->
+3x [ConvTranspose k4 s2 p1 -> BN -> ReLU] (stride 32 -> 4) -> 1x1 conv (no
+bias) to ``num_keypoints`` logit maps.  The sigmoid lives in the loss and
+the decode.  Module names give the reference's state_dict keys
+(``backbone_features_module.*``, ``deconv_N.{0,1}.*``, ``sbp_head.0.weight``),
+the keys ``models/torch_import.py`` of the JAX package reads.
+
+Shapes at a 256x192 input: [B, 3, 256, 192] -> [B, 1024, 8, 6] -> 16x12 ->
+32x24 -> [B, 512, 64, 48] -> logits [B, K, 64, 48], always fp32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .darknet import OUT_CHANNELS, Darknet19
+from .layers import DeconvBnRelu
+
+DECONV_CHANNELS = 512
+
+
+class SBP(nn.Module):
+    def __init__(self, num_keypoints: int = 17,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.backbone_features_module = Darknet19(dtype=dtype)
+        self.deconv_1 = DeconvBnRelu(OUT_CHANNELS, DECONV_CHANNELS, dtype)
+        self.deconv_2 = DeconvBnRelu(DECONV_CHANNELS, DECONV_CHANNELS, dtype)
+        self.deconv_3 = DeconvBnRelu(DECONV_CHANNELS, DECONV_CHANNELS, dtype)
+        self.sbp_head = nn.Sequential(
+            nn.Conv2d(DECONV_CHANNELS, num_keypoints, 1, bias=False))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: [B, 3, H, W] fp32 -> logits [B, K, H/4, W/4] fp32."""
+        x = self.backbone_features_module(x)
+        x = self.deconv_3(self.deconv_2(self.deconv_1(x)))
+        head = self.sbp_head[0]
+        x = F.conv2d(x.to(self.dtype), head.weight.to(self.dtype))
+        # logits stay fp32 so loss and decode match the reference numerics
+        return x.float()

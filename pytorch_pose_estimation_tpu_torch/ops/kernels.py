@@ -1,0 +1,197 @@
+"""Hand-written Hopper kernels (CUDA C++, ``csrc/``) and their wrappers.
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, at first use, under ``build/kernels/<hash
+of the sources>/``, and loaded with ``ctypes``.  Nothing is built or loaded
+when this module is imported, so it imports on a machine without ``nvcc``.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+output with ``torch.empty``, launches on the current stream, raises if the
+launch reports an error, and adds one to its ``launches`` attribute.  The
+wrappers take CUDA tensors only; the plain PyTorch versions live beside
+their callers (``ops/targets.py``, ``ops/decode.py``), and those callers
+take them only for tensors on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import List, Optional, Tuple
+
+import torch
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_SOURCES = ("heatmap.cu", "decode.cu")
+_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-Xcompiler", "-fPIC")
+
+_lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+
+
+def _nvcc_candidates() -> List[str]:
+    out = []
+    if os.environ.get("CUDA_HOME"):
+        out.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    out.append("/usr/local/cuda/bin/nvcc")
+    on_path = shutil.which("nvcc")
+    if on_path:
+        out.append(on_path)
+    return out
+
+
+def find_nvcc() -> str:
+    for path in _nvcc_candidates():
+        if os.path.isfile(path) and os.access(path, os.X_OK):
+            return path
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+        "PATH): the port's CUDA kernels are built from "
+        f"{_CSRC} with nvcc at first use")
+
+
+def _run(procs: List[Tuple[List[str], subprocess.Popen]]) -> None:
+    errors = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"$ {' '.join(cmd)}\n{err.decode(errors='replace')}")
+    if errors:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+
+
+def _build(out_dir: Path) -> Path:
+    """Compile every source in parallel (one nvcc each), then link."""
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"tmp.{os.getpid()}"
+    tmp.mkdir(exist_ok=True)
+    objs, procs = [], []
+    for name in _SOURCES:
+        obj = tmp / (name + ".o")
+        cmd = [nvcc, *_NVCC_FLAGS, "-c", str(_CSRC / name), "-o", str(obj)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                            stderr=subprocess.PIPE)))
+        objs.append(str(obj))
+    _run(procs)
+    so_tmp = tmp / "libpose_kernels.so"
+    cmd = [nvcc, *_NVCC_FLAGS, "-shared", *objs, "-o", str(so_tmp)]
+    _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                 stderr=subprocess.PIPE))])
+    so = out_dir / "libpose_kernels.so"
+    os.replace(so_tmp, so)  # atomic: a concurrent build sees all or none
+    shutil.rmtree(tmp, ignore_errors=True)
+    return so
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for name in _SOURCES:
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_kernels() -> float:
+    """Build (if needed) and load the kernel library; returns the seconds
+    spent, 0 when it was already loaded."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return 0.0
+        t0 = time.perf_counter()
+        so = _BUILD_ROOT / _source_hash() / "libpose_kernels.so"
+        if not so.exists():
+            so = _build(so.parent)
+        lib = ctypes.CDLL(str(so))
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.sbp_heatmaps_launch.argtypes = [vp, vp, ci, ci, ci, cf, cf, cf,
+                                            vp]
+        lib.sbp_heatmaps_launch.restype = ci
+        lib.decode_sbp_launch.argtypes = [vp, vp, ci, ci, ci, cf, cf, ci, vp]
+        lib.decode_sbp_launch.restype = ci
+        _lib = lib
+        return time.perf_counter() - t0
+
+
+def _check(t: torch.Tensor, name: str, ndim: int, last: Optional[int] = None
+           ) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dim() != ndim or (last is not None and t.shape[-1] != last):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.numel() >= 2 ** 31:
+        raise ValueError(f"{name} has {t.numel()} elements, too many for "
+                         "the kernel's 32-bit indexing")
+
+
+def _raise_on(code: int, kernel: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {code}")
+
+
+def sbp_heatmaps_cuda(joints: torch.Tensor, output_res: Tuple[int, int],
+                      sigma: float) -> torch.Tensor:
+    """K1: joints [B, K, 2] fp32 (output-map px, negative = invisible) ->
+    Gaussian heatmaps [B, K, H, W] fp32."""
+    _check(joints, "joints", 3, 2)
+    h, w = int(output_res[0]), int(output_res[1])
+    if h <= 0 or w <= 0:
+        raise ValueError(f"output_res must be positive, got {output_res}")
+    b, k, _ = joints.shape
+    out = torch.empty((b, k, h, w), dtype=torch.float32,
+                      device=joints.device)
+    if out.numel() >= 2 ** 31:
+        raise ValueError("heatmaps too large for the kernel's indexing")
+    build_kernels()
+    sigma = float(sigma)
+    with torch.cuda.device(joints.device):
+        stream = torch.cuda.current_stream(joints.device).cuda_stream
+        code = _lib.sbp_heatmaps_launch(
+            joints.data_ptr(), out.data_ptr(), b * k, h, w, 3 * sigma,
+            3 * sigma + 1, 2.0 * sigma * sigma, stream)
+    _raise_on(code, "sbp_heatmaps")
+    sbp_heatmaps_cuda.launches += 1
+    return out
+
+
+sbp_heatmaps_cuda.launches = 0
+
+
+def decode_sbp_cuda(logits: torch.Tensor, input_w: int,
+                    conf_threshold: float, pred: bool = True
+                    ) -> torch.Tensor:
+    """K2: logits [B, K, H, W] fp32 -> joints [B, K, 3] (x, y, conf) in
+    input pixels, sentinel (-s, -s, -1) where the peak does not clear
+    ``conf_threshold``."""
+    _check(logits, "logits", 4)
+    b, k, h, w = logits.shape
+    if h * w == 0:
+        raise ValueError(f"logits has empty maps: {tuple(logits.shape)}")
+    out = torch.empty((b, k, 3), dtype=torch.float32, device=logits.device)
+    build_kernels()
+    with torch.cuda.device(logits.device):
+        stream = torch.cuda.current_stream(logits.device).cuda_stream
+        code = _lib.decode_sbp_launch(
+            logits.data_ptr(), out.data_ptr(), b * k, h * w, w,
+            int(input_w) / w, float(conf_threshold), int(bool(pred)), stream)
+    _raise_on(code, "decode_sbp")
+    decode_sbp_cuda.launches += 1
+    return out
+
+
+decode_sbp_cuda.launches = 0
+
+KERNELS = (sbp_heatmaps_cuda, decode_sbp_cuda)

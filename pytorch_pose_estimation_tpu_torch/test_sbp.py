@@ -1,0 +1,46 @@
+"""Evaluate an SBP checkpoint on the validation set (val_loss + COCO OKS AP
+summary), on the GPU by default.  Counterpart of the repo's test_sbp.py
+(reference: test_sbp.py:57-64):
+
+    python -m pytorch_pose_estimation_tpu_torch.test_sbp \
+        --cfg configs/sbp_coco.yaml --ckpt model.pt [--device cuda]
+
+``--ckpt`` is a torch state_dict or a Lightning checkpoint.
+"""
+
+import argparse
+
+from .config import get_configs
+from .data import SBPCOCODataModule
+from .models import count_params
+from .train import load_model, validate
+
+
+def test(cfg: dict, ckpt: str, device: str = "cuda"):
+    data_module = SBPCOCODataModule(
+        val_path=cfg["val_path"],
+        img_dir=cfg["img_dir"],
+        input_size=cfg["input_size"],
+        num_keypoints=cfg["num_keypoints"],
+        workers=cfg["workers"],
+        batch_size=cfg["batch_size"],
+    )
+    data_module.setup()
+    model = load_model(cfg, ckpt, device)
+    print(f"SBP: {count_params(model):,} parameters, "
+          f"{len(data_module.val_db)} val instances, device {device}")
+    return validate(cfg, data_module, model, device)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--cfg", required=True, type=str, help="config file")
+    parser.add_argument("--ckpt", required=True, type=str,
+                        help="torch state_dict or Lightning checkpoint")
+    parser.add_argument("--device", default="cuda", type=str)
+    args = parser.parse_args(argv)
+    return test(get_configs(args.cfg), args.ckpt, args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,78 @@
+"""The port stands alone: importing any of its modules (and chip_smoke.py)
+loads no jax and nothing of the JAX package, and needs neither cv2 nor
+PyYAML; its entry points default to the GPU and raise without one; the
+kernel module imports without nvcc and fails clearly when asked to build
+without it."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from pytorch_pose_estimation_tpu_torch.ops import kernels
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "cv2", "yaml"):
+    sys.modules[name] = None  # any import of them raises ImportError
+import pytorch_pose_estimation_tpu_torch as port
+names = [m.name for m in
+         pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+for name in names:
+    __import__(name)
+import chip_smoke
+roots = ("jax", "jaxlib", "flax", "pytorch_pose_estimation_tpu")
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+    m in roots or m.startswith(tuple(r + "." for r in roots))))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_without_jax_cv2_yaml_or_the_jax_package():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.split(maxsplit=1)
+    assert int(n) >= 20  # every module of the package was imported
+    assert bad.strip() == "[]"
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from pytorch_pose_estimation_tpu_torch.train import (load_sbp_predictor,
+                                                         validate)
+    cfg = {"num_keypoints": 17, "input_size": [256, 192],
+           "conf_threshold": 0.25}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_sbp_predictor(cfg, None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        validate(cfg, None, None)
+
+
+def test_kernel_wrappers_take_only_cuda_tensors():
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.sbp_heatmaps_cuda(torch.zeros(1, 17, 2), (64, 48), 2.0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.decode_sbp_cuda(torch.zeros(1, 17, 64, 48), 192, 0.25)
+    assert kernels.sbp_heatmaps_cuda.launches == 0
+    assert kernels.decode_sbp_cuda.launches == 0
+
+
+def test_kernel_build_without_nvcc_raises_clearly(monkeypatch):
+    monkeypatch.setattr(kernels, "_nvcc_candidates", lambda: [])
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.find_nvcc()
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
