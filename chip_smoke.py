@@ -8,10 +8,15 @@ Phases, each printing its results; any failure raises and the script exits
 non-zero, printing no result:
 
 1. device: require CUDA; print the card's name and power limit (nvidia-smi);
-2. build: compile the CUDA kernels from csrc/ with nvcc (build/kernels/);
+2. build: compile the CUDA kernels from csrc/ with nvcc (build/kernels/)
+   and print each kernel's registers, shared memory and spills (ptxas);
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes (B=64, K=17, 64x48), with times (CUDA events),
-   bounds and the plain version's times, also at B=256;
+   the main path's shapes (B=64, K=17, 64x48) and at the shapes that reach
+   the kernels' other paths (63x47 maps and a view at an odd offset, which
+   take scalar loads and stores; 51 maps; NaN); then times (CUDA events),
+   bounds and the plain version's times at B=64 and B=256, and the
+   kernel's time and share of its HBM bound at B=1024, where each tensor
+   is 4x the L2; K2 also timed with the L2 flushed before each call;
 4. serve: full-width SBP (darknet19, 256x192 input, 36,606,368 parameters,
    seeded weights, bf16) through ``load_sbp_predictor``: batch 1, batch 1,
    batch 64, uint8; plus one fp32 forward on the card against the CPU;
@@ -54,10 +59,12 @@ CFG = {
     "precision": "bf16", "seed": 0,
 }
 B, K, H, W = 64, 17, 64, 48
+BIG = 1024  # B at which each tensor (214 MB) is 4x the 50 MB L2
 # H100 SXM data sheet: HBM rate, fp32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# fp32 operations per element, as the kernels' source counts them
+# fp32 operations per element, counted high (K1 takes the exp only inside
+# the window); the byte bound is the larger either way
 K1_OPS_PER_ELEM = 20  # window (4 rint, 4 compares), 2 squares, exp, div, ...
 K2_OPS_PER_ELEM = 5   # sigmoid (neg, exp, add, div) and one compare
 
@@ -108,95 +115,203 @@ def phase_device():
 def phase_build():
     secs = kernels.build_kernels()
     print(f"build: kernels built and loaded in {secs:.2f} s")
+    for line in kernels.ptxas_report():
+        print(f"build: {line}")
+
+
+def share(b, bnd, ms):
+    """The share of the HBM bound, stated only at B=1024: at the main
+    path's sizes the data may sit in L2, and a kernel faster than its
+    bound read from L2 what the bound counts from HBM."""
+    if b != BIG:
+        return "share stated at B=1024 only"
+    if bnd > ms:
+        return "the HBM bound does not bind at this size (data in L2)"
+    return f"{bnd / ms:.1%} of the HBM bound"
+
+
+# the map's edges: corners, coordinates past the map (clipped), fractional
+# ones just inside, negatives on one axis only (invisible)
+EDGES = [[0, 0], [47, 63], [47.9, 63.9], [48.5, 64.5], [100, 2], [0.5, 63.5],
+         [-0.5, 10], [10, -3], [0, 0.99]]
 
 
 def _joints(gen, b, k, h, w):
     j = torch.rand(b, k, 2, generator=gen) * torch.tensor(
         [w + 20.0, h + 20.0]) - 10.0
     j[torch.rand(b, k, generator=gen) < 0.3] = -1.0
+    j[0, :len(EDGES)] = torch.tensor(EDGES)
     return j.cuda()
 
 
 def phase_k1(gen):
-    """K1 against the plain version at sigma 2 and 1.5 (half-to-even
-    window bounds); tolerance 1e-6 (expf and the division may differ by
-    an ulp of values <= 1)."""
-    joints = _joints(gen, B, K, H, W)
+    """K1 against the plain version at sigma 2 (error 0) and 1.5 (half-to-
+    even window bounds; 1e-6: expf and the division may differ by an ulp
+    of values <= 1), on 64x48 maps (16-byte stores) and 63x47 maps (H*W
+    odd: scalar stores), with the edge joints in the first sample."""
     err = 0.0
-    for sigma in (2.0, 1.5):
-        got = kernels.sbp_heatmaps_cuda(joints, (H, W), sigma)
-        want = target_ops.sbp_heatmaps(joints, (H, W), K, sigma)
-        e = float((got - want).abs().max())
-        print(f"K1 sigma={sigma}: max abs err {e:.3g} vs plain "
-              f"(max value {float(got.max()):.4f})")
-        check(e <= 1e-6, f"K1 disagrees with its plain version: {e}")
-        err = max(err, e)
+    for h, w in ((H, W), (63, 47)):
+        joints = _joints(gen, B, K, h, w)
+        for sigma, tol in ((2.0, 0.0), (1.5, 1e-6)):
+            got = kernels.sbp_heatmaps_cuda(joints, (h, w), sigma)
+            want = target_ops.sbp_heatmaps(joints, (h, w), K, sigma)
+            e = float((got - want).abs().max())
+            print(f"K1 {h}x{w} sigma={sigma}: max abs err {e:.3g} vs plain "
+                  f"(max value {float(got.max()):.4f})")
+            check(e <= tol, f"K1 disagrees with its plain version at "
+                  f"{h}x{w}, sigma {sigma}: {e}")
+            err = max(err, e)
     rows = {}
-    for b in (B, 256):
+    for b in (B, 256, BIG):
         j = _joints(gen, b, K, H, W)
         ms = device_ms(lambda: kernels.sbp_heatmaps_cuda(j, (H, W), 2.0))
-        plain = device_ms(lambda: target_ops.sbp_heatmaps(j, (H, W), K, 2.0),
-                          iters=20)
         n = b * K * H * W
         bnd, by = bound_ms(b * K * 2 * 4 + n * 4, n * K1_OPS_PER_ELEM)
-        print(f"K1 B={b}: kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} "
-              f"us, bound {bnd * 1e3:.2f} us ({by}), "
-              f"{bnd / ms:.1%} of bound")
+        plain = None
+        if b < BIG:  # the plain version's temporaries need not be timed
+            plain = device_ms(
+                lambda: target_ops.sbp_heatmaps(j, (H, W), K, 2.0), iters=20)
+        print(f"K1 B={b}: kernel {ms * 1e3:.2f} us, bound {bnd * 1e3:.2f} us "
+              f"({by}), {share(b, bnd, ms)}"
+              + (f"; plain {plain * 1e3:.2f} us" if plain else ""))
         rows[b] = (ms, plain, bnd, by)
     return err, rows
 
 
-def _decode_cases(gen):
-    """(name, logits, threshold, pred) at the main path's shape."""
-    rand = (torch.randn(B, K, H, W, generator=gen) * 3).cuda()
-    ties = torch.full((B, K, H, W), -5.0, device="cuda")
+def _decode_cases(gen, b, h, w):
+    """(name, logits, threshold, pred) on [b, K, h, w] maps."""
+    rand = (torch.randn(b, K, h, w, generator=gen) * 3).cuda()
+    ties = torch.full((b, K, h, w), -5.0, device="cuda")
     ties[:, 0] = 30.0  # saturates to 1.0 everywhere: index 0 wins
-    flat = ties.view(B, K, H * W)
+    flat = ties.view(b, K, h * w)
     flat[:, 1, 100] = 25.0  # ties with 20.0 at index 50 after the sigmoid
     flat[:, 1, 50] = 20.0
     ties[:, 2] = -20.0  # nothing clears the threshold: sentinel
-    below = torch.zeros(B, K, H, W, device="cuda")  # 0.5 < 0.9
-    stamped = kernels.sbp_heatmaps_cuda(_joints(gen, B, K, H, W), (H, W), 2.0)
-    return [("random x3", rand, 0.25, True), ("saturated ties", ties, 0.25,
-                                               True),
+    below = torch.zeros(b, K, h, w, device="cuda")  # 0.5 < 0.9
+    stamped = kernels.sbp_heatmaps_cuda(_joints(gen, b, K, h, w), (h, w), 2.0)
+    nan = rand.clone()
+    nan.view(b, K, h * w)[0, 3, h * w // 2 + 1] = float("nan")
+    return [("random x3", rand, 0.25, True),
+            ("saturated ties", ties, 0.25, True),
             ("all below threshold", below, 0.9, True),
-            ("pred=False on K1 targets", stamped, 0.99, False)]
+            ("pred=False on K1 targets", stamped, 0.99, False),
+            ("NaN mid-map", nan, 0.25, True)]
 
 
-def phase_k2(gen):
-    """K2 against the plain version: x and y identical, conf within 1e-6
-    (both compute the sigmoid as 1/(1+expf(-x)))."""
+def _at_offset_1(x):
+    """The same values as a contiguous view one float into its storage:
+    every map starts off a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, device=x.device)
+    buf[1:].copy_(x.flatten())
+    view = buf[1:].view(x.shape)
+    check(view.is_contiguous() and view.data_ptr() % 16 != 0,
+          "the offset view is not a misaligned contiguous tensor")
+    return view
+
+
+def _decode_check(gen, b, h, w, offset):
+    """Every case on one layout: x and y identical to the plain version,
+    conf within 1e-6 (both compute the sigmoid as 1/(1+expf(-x)))."""
+    label = f"B={b} {h}x{w}" + (" at offset 1" if offset else "")
     err = 0.0
-    cases = _decode_cases(gen)
+    cases = _decode_cases(gen, b, h, w)
+    s = np.float32(192 / w)
     for name, logits, thr, pred in cases:
+        if offset:
+            logits = _at_offset_1(logits)
         got = kernels.decode_sbp_cuda(logits, 192, thr, pred)
         want = decode_ops.decode_sbp_batch(logits, 192, thr, pred)
         xy_same = bool(torch.equal(got[..., :2], want[..., :2]))
         e = float((got - want).abs().max())
         found = int((got[..., 2] >= 0).sum())
-        print(f"K2 {name}: x/y identical {xy_same}, max abs err {e:.3g}, "
-              f"{found}/{B * K} found")
-        check(xy_same and e <= 1e-6, f"K2 disagrees on {name}: {e}")
+        print(f"K2 {label} {name}: x/y identical {xy_same}, max abs err "
+              f"{e:.3g}, {found}/{b * K} found")
+        check(xy_same and e <= 1e-6, f"K2 disagrees on {label} {name}: {e}")
         err = max(err, e)
-    ties = kernels.decode_sbp_cuda(cases[1][1], 192, 0.25)
-    check(torch.equal(ties[0, :3].cpu(), torch.tensor(
-        [[0.0, 0.0, 1.0], [50 % W * 4.0, 50 // W * 4.0, 1.0],
-         [-4.0, -4.0, -1.0]])), "K2 broke a tie against the first index")
-    rows = {}
-    for b in (B, 256):
-        x = (torch.randn(b, K, H, W, generator=gen) * 3).cuda()
+        if name == "saturated ties":
+            check(torch.equal(got[0, :3].cpu(), torch.tensor(
+                [[0.0, 0.0, 1.0],
+                 [np.float32(50 % w) * s, np.float32(50 // w) * s, 1.0],
+                 [-s, -s, -1.0]])), "K2 broke a tie against the first index")
+        if name == "NaN mid-map":
+            # NaN wins the map as in torch.argmax, and fails the threshold
+            clean = kernels.decode_sbp_cuda(cases[0][1], 192, thr, pred)
+            check(float(clean[0, 3, 2]) > thr and torch.equal(
+                got[0, 3].cpu(), torch.tensor([-s, -s, -1.0])),
+                "K2 let a finite value win over a NaN")
+    return err
+
+
+def cold_ms(fn, flush, iters=20):
+    """Device time of one call, timed alone between two events; before
+    each call a zero_() of ``flush`` (256 MB: evicts the 50 MB L2) unless
+    it is None, then a sleep kernel that covers the host's enqueue."""
+    for _ in range(3):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda.synchronize()
+    for start, end in events:
+        if flush is not None:
+            flush.zero_()
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def phase_k2(gen):
+    """K2 against the plain version on every layout the kernel takes: the
+    main path's (16-byte loads), 63x47 maps and a view at an odd offset
+    (scalar loads), and B=3 (51 maps).  Then times."""
+    err = max(_decode_check(gen, b, h, w, off) for b, h, w, off in (
+        (B, H, W, 0), (B, 63, 47, 0), (B, H, W, 1), (3, H, W, 0)))
+    rows, agree = {}, []
+    cuda_gen = torch.Generator(device="cuda").manual_seed(1)
+    flush = torch.empty(64 * 2 ** 20, device="cuda")  # 256 MB
+    # the single-call method's own cost per call, read on an empty kernel:
+    # the launch latency that back-to-back calls hide
+    empty = lambda: torch.cuda._sleep(0)  # noqa: E731
+    overhead = cold_ms(empty, None) - device_ms(empty)
+    print(f"K2 single-call timing overhead: {overhead * 1e3:.2f} us per call "
+          f"(an empty kernel timed alone, less back to back)")
+    for b in (B, 256, BIG):
+        x = torch.randn(b, K, H, W, generator=cuda_gen, device="cuda") * 3
         ms = device_ms(lambda: kernels.decode_sbp_cuda(x, 192, 0.25))
-        plain = device_ms(lambda: decode_ops.decode_sbp_batch(x, 192, 0.25),
-                          iters=20)
-        composite = device_ms(lambda: torch.sigmoid(x).flatten(2).max(2),
-                              iters=20)
         n = b * K * H * W
         bnd, by = bound_ms(n * 4 + b * K * 3 * 4, n * K2_OPS_PER_ELEM)
-        print(f"K2 B={b}: kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} "
-              f"us, bound {bnd * 1e3:.2f} us ({by}), {bnd / ms:.1%} of "
-              f"bound; yardstick torch.sigmoid(x).flatten(2).max(2) "
-              f"{composite * 1e3:.2f} us (not one call)")
+        line = (f"K2 B={b}: kernel {ms * 1e3:.2f} us, bound "
+                f"{bnd * 1e3:.2f} us ({by}), {share(b, bnd, ms)}")
+        plain = None
+        if b < BIG:
+            plain = device_ms(
+                lambda: decode_ops.decode_sbp_batch(x, 192, 0.25), iters=20)
+            composite = device_ms(
+                lambda: torch.sigmoid(x).flatten(2).max(2), iters=20)
+            line += (f"; plain {plain * 1e3:.2f} us, yardstick "
+                     f"torch.sigmoid(x).flatten(2).max(2) "
+                     f"{composite * 1e3:.2f} us (not one call)")
+        print(line)
         rows[b] = (ms, plain, bnd, by)
+        if b in (B, BIG):
+            fn = lambda: kernels.decode_sbp_cuda(x, 192, 0.25)  # noqa: E731
+            cold = cold_ms(fn, flush) - overhead
+            alone = cold_ms(fn, None) - overhead
+            print(f"K2 B={b} cold: kernel {cold * 1e3:.2f} us with the L2 "
+                  f"flushed before each call, {share(b, bnd, cold)}; "
+                  f"{alone * 1e3:.2f} us by the same method without the "
+                  f"flush (warm, back to back: {ms * 1e3:.2f} us); both "
+                  f"less the overhead")
+            agree.append((b, alone, ms))
+    # the single-call method must read a warm call as the warm method does,
+    # within a quarter or 3 us: a call alone still carries about 2 us of
+    # ramp that back-to-back calls overlap (1.8 us at B=64 on an H100)
+    for b, alone, ms in agree:
+        check(abs(alone - ms) <= max(0.25 * ms, 0.003),
+              f"K2 B={b}: a call timed alone ({alone * 1e3:.2f} us) "
+              f"disagrees with the warm time ({ms * 1e3:.2f} us)")
     return err, rows
 
 

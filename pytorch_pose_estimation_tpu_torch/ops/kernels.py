@@ -2,8 +2,10 @@
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, at first use, under ``build/kernels/<hash
-of the sources>/``, and loaded with ``ctypes``.  Nothing is built or loaded
-when this module is imported, so it imports on a machine without ``nvcc``.
+of the sources>/``, and loaded with ``ctypes``; ptxas's report of each
+kernel's registers, shared memory and spills is kept beside it.  Nothing
+is built or loaded when this module is imported, so it imports on a
+machine without ``nvcc``.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 output with ``torch.empty``, launches on the current stream, raises if the
@@ -31,7 +33,8 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("heatmap.cu", "decode.cu")
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-Xcompiler", "-fPIC")
+               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_PTXAS_REPORT = "ptxas.txt"  # each kernel's registers, shared memory, spills
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -58,14 +61,19 @@ def find_nvcc() -> str:
         f"{_CSRC} with nvcc at first use")
 
 
-def _run(procs: List[Tuple[List[str], subprocess.Popen]]) -> None:
-    errors = []
+def _run(procs: List[Tuple[List[str], subprocess.Popen]]) -> str:
+    """Wait for every command; raise with their errors if any failed, else
+    return what they wrote to stderr."""
+    errors, logs = [], []
     for cmd, proc in procs:
         _, err = proc.communicate()
+        err = err.decode(errors="replace")
         if proc.returncode != 0:
-            errors.append(f"$ {' '.join(cmd)}\n{err.decode(errors='replace')}")
+            errors.append(f"$ {' '.join(cmd)}\n{err}")
+        logs.append(err)
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+    return "".join(logs)
 
 
 def _build(out_dir: Path) -> Path:
@@ -81,7 +89,7 @@ def _build(out_dir: Path) -> Path:
         procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
                                             stderr=subprocess.PIPE)))
         objs.append(str(obj))
-    _run(procs)
+    (out_dir / _PTXAS_REPORT).write_text(_run(procs))
     so_tmp = tmp / "libpose_kernels.so"
     cmd = [nvcc, *_NVCC_FLAGS, "-shared", *objs, "-o", str(so_tmp)]
     _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
@@ -122,6 +130,15 @@ def build_kernels() -> float:
         return time.perf_counter() - t0
 
 
+def ptxas_report() -> List[str]:
+    """The ptxas lines of the loaded build: per kernel, its registers,
+    shared memory and spills (``-Xptxas -v``)."""
+    path = _BUILD_ROOT / _source_hash() / _PTXAS_REPORT
+    lines = path.read_text().splitlines() if path.exists() else []
+    return [ln.strip() for ln in lines
+            if "entry function" in ln or "Used" in ln or "spill" in ln]
+
+
 def _check(t: torch.Tensor, name: str, ndim: int, last: Optional[int] = None
            ) -> None:
     if not t.is_cuda:
@@ -145,7 +162,9 @@ def _raise_on(code: int, kernel: str) -> None:
 def sbp_heatmaps_cuda(joints: torch.Tensor, output_res: Tuple[int, int],
                       sigma: float) -> torch.Tensor:
     """K1: joints [B, K, 2] fp32 (output-map px, negative = invisible) ->
-    Gaussian heatmaps [B, K, H, W] fp32."""
+    Gaussian heatmaps [B, K, H, W] fp32.  The kernel writes 16-byte
+    vectors when (H*W) % 4 == 0 (every map then starts 16-byte aligned),
+    else single floats."""
     _check(joints, "joints", 3, 2)
     h, w = int(output_res[0]), int(output_res[1])
     if h <= 0 or w <= 0:
@@ -175,7 +194,8 @@ def decode_sbp_cuda(logits: torch.Tensor, input_w: int,
                     ) -> torch.Tensor:
     """K2: logits [B, K, H, W] fp32 -> joints [B, K, 3] (x, y, conf) in
     input pixels, sentinel (-s, -s, -1) where the peak does not clear
-    ``conf_threshold``."""
+    ``conf_threshold``.  The kernel reads 16-byte vectors when every map
+    starts on a 16-byte boundary, else single floats."""
     _check(logits, "logits", 4)
     b, k, h, w = logits.shape
     if h * w == 0:

@@ -30,18 +30,18 @@ def _assert_same(got, want):
     np.testing.assert_allclose(got[..., 2], want[..., 2], rtol=0, atol=1e-6)
 
 
-def _random_logits():
-    return (np.random.RandomState(1).randn(4, 17, 64, 48) * 3
+def _random_logits(h=64, w=48):
+    return (np.random.RandomState(1).randn(4, 17, h, w) * 3
             ).astype(np.float32)
 
 
-def _tie_logits():
+def _tie_logits(h=64, w=48):
     """Channel 0: all 30 (sigmoid saturates to 1.0 everywhere) -> index 0.
     Channel 1: 25 at index 100 and 20 at index 50, both 1.0 after the
     sigmoid -> index 50, although the raw logits' argmax is 100.
     Channel 2: two equal maxima -> the first.  Channel 3: all -20 -> below
     any threshold -> sentinel."""
-    x = np.full((2, 4, 64, 48), -5.0, np.float32)
+    x = np.full((2, 4, h, w), -5.0, np.float32)
     x[:, 0] = 30.0
     x[:, 1].reshape(2, -1)[:, 100] = 25.0
     x[:, 1].reshape(2, -1)[:, 50] = 20.0
@@ -50,20 +50,27 @@ def _tie_logits():
     return x
 
 
-@pytest.mark.parametrize("case", ["random", "ties"])
-def test_decode_matches_jax_pallas_and_xla(case):
-    logits = _random_logits() if case == "random" else _tie_logits()
+@pytest.mark.parametrize("case,h,w", [
+    pytest.param("random", 64, 48, id="random"),
+    pytest.param("ties", 64, 48, id="ties"),
+    # H*W % 4 != 0: maps off 16-byte boundaries on the card
+    pytest.param("random", 63, 47, id="random-63x47"),
+    pytest.param("ties", 63, 47, id="ties-63x47")])
+def test_decode_matches_jax_pallas_and_xla(case, h, w):
+    logits = _random_logits(h, w) if case == "random" else _tie_logits(h, w)
     got = decode_sbp_batch(torch.from_numpy(logits), 192, 0.25).numpy()
     assert got.shape == logits.shape[:2] + (3,)
     for want in _both_jax(logits, 192, 0.25, True):
         _assert_same(got, want)
     if case == "ties":
-        s = 192 / 48
+        s = np.float32(192 / w)  # coordinates are fp32 products
         np.testing.assert_array_equal(got[:, 0], [[0, 0, 1]] * 2)
         np.testing.assert_array_equal(
-            got[:, 1], [[50 % 48 * s, 50 // 48 * s, 1]] * 2)
+            got[:, 1], [[np.float32(50 % w) * s, np.float32(50 // w) * s,
+                         1]] * 2)
         np.testing.assert_array_equal(
-            got[:, 2, :2], [[300 % 48 * s, 300 // 48 * s]] * 2)
+            got[:, 2, :2], [[np.float32(300 % w) * s,
+                             np.float32(300 // w) * s]] * 2)
         np.testing.assert_array_equal(got[:, 3], [[-s, -s, -1]] * 2)
 
 

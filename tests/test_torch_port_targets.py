@@ -21,6 +21,7 @@ from pytorch_pose_estimation_tpu_torch.ops import (
     SBPHeatmapGenerator, sbp_heatmaps, sbp_heatmaps_batch)
 
 OUT = (64, 48)
+ODD = (63, 47)  # H*W % 4 != 0: maps off 16-byte boundaries on the card
 
 
 def _joints(seed, b=4, k=17):
@@ -38,15 +39,18 @@ def _joints(seed, b=4, k=17):
     return j
 
 
-@pytest.mark.parametrize("sigma", [2.0, 1.5])
-def test_heatmaps_match_jax_pallas_and_xla(sigma):
+@pytest.mark.parametrize("sigma,out", [
+    pytest.param(2.0, OUT, id="2.0"), pytest.param(1.5, OUT, id="1.5"),
+    pytest.param(2.0, ODD, id="2.0-63x47"),
+    pytest.param(1.5, ODD, id="1.5-63x47")])
+def test_heatmaps_match_jax_pallas_and_xla(sigma, out):
     joints = _joints(int(sigma * 10))
-    got = sbp_heatmaps_batch(torch.from_numpy(joints), OUT, 17, sigma)
-    assert got.shape == (4, 17) + OUT and got.dtype == torch.float32
+    got = sbp_heatmaps_batch(torch.from_numpy(joints), out, 17, sigma)
+    assert got.shape == (4, 17) + out and got.dtype == torch.float32
     got = got.numpy()
-    pallas = np.asarray(sbp_heatmaps_pallas(jnp.asarray(joints), OUT, sigma))
+    pallas = np.asarray(sbp_heatmaps_pallas(jnp.asarray(joints), out, sigma))
     xla = np.asarray(jax.vmap(
-        lambda j: jax_sbp_heatmaps(j, OUT, 17, sigma))(jnp.asarray(joints)))
+        lambda j: jax_sbp_heatmaps(j, out, 17, sigma))(jnp.asarray(joints)))
     np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-6)
     np.testing.assert_allclose(got, xla, rtol=0, atol=1e-6)
     # the edge joints stamp (clipped centers) or stay empty (invisible)
