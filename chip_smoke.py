@@ -24,7 +24,18 @@ non-zero, printing no result:
    the OKS metric) on a seeded batch with a COCO-format annotation file;
    the launch counts of both kernels are set to 0 before phase 4 and read
    after phase 5; then K1 stamps and K2 decodes the targets (GT probe),
-   which must give back trunc(joint * ratio) * 4, and their AP is printed.
+   which must give back trunc(joint * ratio) * 4, and their AP is printed;
+6. train, at the same full width (bf16, batch 256, sgd nesterov under
+   yolo_lr, device CLAHE, the port's host loader over seeded crops in
+   memory): a. ``Trainer(cfg, dm).fit()`` for one epoch of 20 steps, its
+   validation and checkpoints, then a new ``Trainer`` resumed from ``last``
+   for a second epoch, with the launch counts set to 0 before and read
+   after (K1 once per train and per eval step, K2 once per eval step); the
+   train step's time by host clock and one step split by CUDA events;
+   b. one fp32 train step (TF32 off) on the card against the same step on
+   the CPU, same weights and draws, batch 2, beside the CPU's step with
+   every weight moved by one ulp; c. 30 steps on one batch without
+   augmentation at a constant lr: the loss must fall.
 
 The last three lines of standard output: the card's name and power limit,
 one JSON object describing each kernel, and
@@ -42,13 +53,19 @@ import time
 import numpy as np
 import torch
 
+from pytorch_pose_estimation_tpu_torch import optim
+from pytorch_pose_estimation_tpu_torch.data import HostLoader
 from pytorch_pose_estimation_tpu_torch.eval import SBPmAPCOCO
 from pytorch_pose_estimation_tpu_torch.ops import decode as decode_ops
 from pytorch_pose_estimation_tpu_torch.ops import kernels
 from pytorch_pose_estimation_tpu_torch.ops import targets as target_ops
-from pytorch_pose_estimation_tpu_torch.ops.image import normalize_batch
-from pytorch_pose_estimation_tpu_torch.train import (load_model,
+from pytorch_pose_estimation_tpu_torch.ops.image import (AugmentDraws,
+                                                         normalize_batch,
+                                                         sample_augment)
+from pytorch_pose_estimation_tpu_torch.train import (Trainer, build_model,
+                                                     load_model,
                                                      load_sbp_predictor,
+                                                     make_sbp_steps,
                                                      validate)
 from pytorch_pose_estimation_tpu_torch.train.steps import _sbp_targets
 
@@ -58,6 +75,18 @@ CFG = {
     "sigma": 2, "conf_threshold": 0.25, "batch_size": 64,
     "precision": "bf16", "seed": 0,
 }
+# configs/sbp_coco.yaml's training fields (phase 6); validation and
+# checkpoints every epoch, CLAHE on the device
+TRAIN_CFG = dict(
+    CFG, model="simple-baselines-pose", dataset_name="coco-keypoints",
+    batch_size=256, epochs=1, save_freq=1, clahe="device", optimizer="sgd",
+    optimizer_options={"lr": 1e-3, "momentum": 0.9, "weight_decay": 5e-3,
+                       "nesterov": True},
+    scheduler="yolo_lr",
+    scheduler_options={"burn_in": 2000, "steps": [105000], "scales": [0.1]},
+    trainer_options={"check_val_every_n_epoch": 1,
+                     "num_sanity_val_steps": 0})
+TRAIN_STEPS = 20  # per epoch, at batch 256
 B, K, H, W = 64, 17, 64, 48
 BIG = 1024  # B at which each tensor (214 MB) is 4x the 50 MB L2
 # H100 SXM data sheet: HBM rate, fp32 rate outside the tensor cores
@@ -448,6 +477,231 @@ def fp32_cross_check():
     check(diff <= 1e-5 * scale, "fp32 logits differ between card and CPU")
 
 
+class _MemoryData:
+    """A data module over seeded uint8 crops made in memory (cv2 is not
+    assumed on the card host): the port's ``HostLoader`` collates them.
+    The train set is ``n_train`` records over ``n_unique`` distinct crops;
+    the val set is the eval batch of phase 5 with its annotation file."""
+
+    def __init__(self, n_unique, n_train, val_batch, rng):
+        self.images = rng.randint(0, 256, (n_unique, 256, 192, 3),
+                                  dtype=np.uint8)
+        self.joints = np.stack([rng.uniform(0, 192, (n_unique, K)),
+                                rng.uniform(0, 256, (n_unique, K))],
+                               -1).astype(np.float32)
+        self.vis = (rng.rand(n_unique, K) > 0.2).astype(np.float32)
+        self.train_db = list(range(n_train))
+        self.val = val_batch
+        self.val_db = list(range(len(val_batch["image"])))
+        self.clahe_prob = 0.5  # host CLAHE; clahe: device turns it off
+
+    def _train_sample(self, rec, index, epoch):
+        i = rec % len(self.images)
+        return {"image": self.images[i], "joints": self.joints[i],
+                "joints_vis": self.vis[i]}
+
+    def _val_sample(self, rec, index, epoch):
+        return {k: v[rec] for k, v in self.val.items()}
+
+    def train_loader(self):
+        return HostLoader(self.train_db, self._train_sample, 256,
+                          shuffle=True, seed=0, drop_last=True)
+
+    def val_loader(self):
+        return HostLoader(self.val_db, self._val_sample, 256)
+
+
+def _recording(step, losses):
+    """The trainer's train step, keeping each step's loss (a device
+    scalar: no sync)."""
+    def wrapped(*args, **kwargs):
+        loss = step(*args, **kwargs)
+        losses.append(loss)
+        return loss
+    return wrapped
+
+
+def phase_train_fit(cfg, dm, save_dir):
+    """6a: fit one epoch, validate, save; resume from ``last`` for a
+    second epoch in a new Trainer.  Returns the launch counts and the
+    resumed trainer."""
+    cfg = dict(cfg, save_dir=save_dir)
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    first = Trainer(cfg, dm)
+    first.train_step = _recording(first.train_step, losses)
+    first.fit()
+    ckpts = os.path.join(first.version_dir, "checkpoints")
+    names = sorted(os.listdir(ckpts))
+    want = sorted(["best", "last", f"epoch=0-step={TRAIN_STEPS}"])
+    check(names == sorted(want + [n + ".meta.json" for n in want]),
+          f"train: checkpoint files {names}")
+    check(first.state.step == TRAIN_STEPS,
+          f"train: {first.state.step} steps in the first epoch")
+    second = Trainer(dict(cfg, epochs=2), dm)
+    second.train_step = _recording(second.train_step, losses)
+    second.fit(resume=os.path.join(ckpts, "last"))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {kern.__name__: kern.launches for kern in kernels.KERNELS}
+    check(second.state.step == 2 * TRAIN_STEPS,
+          f"train: the resumed run ended at step {second.state.step}")
+    losses = torch.stack(losses).float().cpu()
+    check(len(losses) == 2 * TRAIN_STEPS and bool(torch.isfinite(
+        losses).all()), f"train: losses {losses.tolist()}")
+    eval_steps = 2  # one val batch per validation, one validation a fit
+    check(launches["sbp_heatmaps_cuda"] == 2 * TRAIN_STEPS + eval_steps,
+          f"train: K1 launched {launches['sbp_heatmaps_cuda']} times for "
+          f"{2 * TRAIN_STEPS} train and {eval_steps} eval steps")
+    check(launches["decode_sbp_cuda"] == eval_steps,
+          f"train: K2 launched {launches['decode_sbp_cuda']} times for "
+          f"{eval_steps} eval steps")
+    print(f"train: fit 1 epoch + resumed fit 1 epoch, {2 * TRAIN_STEPS} "
+          f"steps at batch 256 in {dt:.1f} s host clock (model builds, "
+          f"validation and 6 checkpoint writes included); losses "
+          f"{float(losses[0]):.4f} ... {float(losses[-1]):.4f}, all finite; "
+          f"step continued {TRAIN_STEPS} -> {second.state.step}; "
+          f"launches {launches}")
+    return launches, second
+
+
+def phase_train_timing(trainer, dm):
+    """The train step alone at batch 256 on a batch already on the card:
+    steady state by host clock (synchronized), after warm-up; then one
+    step split by CUDA events."""
+    batch = trainer._device_batch(
+        next(iter(dm.train_loader())), ("image", "joints", "joints_vis"))
+    gen = torch.Generator("cuda").manual_seed(1)
+    host_gen = torch.Generator().manual_seed(1)
+    for _ in range(3):
+        trainer.train_step(batch, gen, host_gen)
+    torch.cuda.synchronize()
+    n = 10
+    t0 = time.perf_counter()
+    for _ in range(n):
+        trainer.train_step(batch, gen, host_gen)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / n * 1e3
+    events = [torch.cuda.Event(enable_timing=True)]
+    names = []
+
+    def marker(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        names.append(name)
+
+    torch.cuda.synchronize()
+    events[0].record()
+    trainer.train_step(batch, gen, host_gen, marker=marker)
+    torch.cuda.synchronize()
+    split = {name: events[i].elapsed_time(events[i + 1])
+             for i, name in enumerate(names)}
+    print(f"train step at batch 256: {step_ms:.2f} ms ({256e3 / step_ms:.0f} "
+          f"images/s), host clock over {n} steps after 3 warm-up steps")
+    print("train step split (CUDA events, one step): " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in split.items()))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train: peak device memory {peak:.1f} GiB")
+    return step_ms, split
+
+
+def _draws_to(draws, device):
+    return AugmentDraws(**{k: v.to(device) if torch.is_tensor(v) else v
+                           for k, v in vars(draws).items()})
+
+
+def _update_gap(a, b) -> float:
+    """|update a - update b| / |update b| over all parameters, each
+    (state_dict after, state_dict before)."""
+    names = [k for k in b[0] if k.endswith(("weight", "bias"))]
+    ua = torch.cat([(a[0][k] - a[1][k]).flatten() for k in names])
+    ub = torch.cat([(b[0][k] - b[1][k]).flatten() for k in names])
+    return float((ua - ub).norm() / ub.norm())
+
+
+def phase_train_vs_cpu(cfg, dm):
+    """6b: one fp32 train step (TF32 off) on the card and on the CPU:
+    same seeded weights, same batch, same draws (drawn once on the CPU),
+    nesterov SGD with weight decay at a constant lr 1e-3.  For scale, the
+    CPU's step again with every weight moved by about one fp32 ulp: at this
+    init the update is ill-conditioned (the loss pushes every logit down,
+    so the gradient into each train-mode BN is nearly constant per channel
+    and its backward subtracts nearly all of it), and the card's rounding
+    differs from the CPU's everywhere, not in one ulp once."""
+    cfg = dict(cfg, precision="fp32")
+    runs = {}
+    gen = torch.Generator().manual_seed(2)
+    draws = sample_augment(gen, 2, (256, 192), clahe_prob=0.5)
+    batch = {"image": torch.from_numpy(dm.images[:2]),
+             "joints": torch.from_numpy(dm.joints[:2]),
+             "joints_vis": torch.from_numpy(dm.vis[:2])}
+    for run, device in (("card", "cuda"), ("cpu", "cpu"),
+                        ("cpu, weights +-1 ulp", "cpu")):
+        model = build_model(cfg).train()
+        if run.endswith("ulp"):
+            noise = torch.Generator().manual_seed(5)
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(1 + 1.2e-7 * torch.randn(p.shape, generator=noise))
+        model = model.to(device)
+        start = {k: v.detach().clone().cpu()
+                 for k, v in model.state_dict().items()}
+        opt = optim.get_optimizer("sgd", list(model.parameters()), lr=1e-3,
+                                  momentum=0.9, weight_decay=5e-3,
+                                  nesterov=True)
+        step, _ = make_sbp_steps(model, opt, [256, 192], (64, 48), K, 2.0,
+                                 0.25)
+        loss = step({k: v.to(device) for k, v in batch.items()},
+                    draws=_draws_to(draws, device))
+        runs[run] = (float(loss), ({k: v.detach().cpu() for k, v in
+                                    model.state_dict().items()}, start))
+    (gl, gsd), (cl, csd) = runs["card"], runs["cpu"]
+    check(all(torch.equal(gsd[1][k], csd[1][k]) for k in gsd[1]),
+          "train vs CPU: the seeded weights differ")
+    loss_rel = abs(gl - cl) / abs(cl)
+    gap = _update_gap(gsd, csd)
+    ulp_gap = _update_gap(runs["cpu, weights +-1 ulp"][1], csd)
+    stats = max(float((gsd[0][k] - csd[0][k]).abs().max()
+                      / csd[0][k].abs().max())
+                for k in csd[0] if k.endswith(("running_mean",
+                                               "running_var")))
+    print(f"train vs CPU, fp32 (TF32 off), batch 2: loss {gl:.6f} card, "
+          f"{cl:.6f} CPU ({loss_rel:.2e} relative); the parameters' update "
+          f"{gap:.2e} of its norm apart (the CPU's own step with the weights "
+          f"moved by one ulp: {ulp_gap:.2e}); BN running statistics "
+          f"{stats:.2e} of the largest value")
+    # limits: measured 3.9e-7, 2.35e-2 (one-ulp yardstick 3.3e-3) and
+    # 6.0e-5 on an H100; a plain-momentum update would be ~90% apart
+    check(loss_rel <= 1e-5 and gap <= 0.1 and stats <= 3e-4,
+          "train vs CPU: the card's step disagrees with the CPU's")
+
+
+def phase_train_learns(cfg, dm):
+    """6c: 30 steps on one fixed batch of 32, augmentation off (identity
+    crop: scale 1, ratio w/h), constant lr 1e-3; the loss must fall."""
+    model = build_model(cfg).cuda().train()
+    opt = optim.get_optimizer("sgd", list(model.parameters()), lr=1e-3,
+                              momentum=0.9, weight_decay=5e-3, nesterov=True)
+    augment = {"rotate_prob": 0.0, "jitter_prob": 0.0,
+               "scale_range": (1.0, 1.0), "ratio_range": (0.75, 0.75)}
+    step, _ = make_sbp_steps(model, opt, [256, 192], (64, 48), K, 2.0, 0.25,
+                             augment=augment)
+    batch = {"image": torch.from_numpy(dm.images[:32]).cuda(),
+             "joints": torch.from_numpy(dm.joints[:32]).cuda(),
+             "joints_vis": torch.from_numpy(dm.vis[:32]).cuda()}
+    gen = torch.Generator("cuda").manual_seed(3)
+    host_gen = torch.Generator().manual_seed(3)
+    losses = torch.stack([step(batch, gen, host_gen) for _ in range(30)])
+    first, last = float(losses[0]), float(losses[-1])
+    print(f"train learns: fixed batch of 32, 30 steps: loss {first:.4f} -> "
+          f"{last:.4f}")
+    check(bool(torch.isfinite(losses).all()) and last < 0.25 * first,
+          "train learns: the loss did not fall below a quarter")
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -468,13 +722,24 @@ def main():
             phase_eval(batch, cfg)
             launches = {kern.__name__: kern.launches
                         for kern in kernels.KERNELS}
-            print(f"main path launches: {launches}")
+            print(f"serve and eval launches: {launches}")
             check(all(n > 0 for n in launches.values()),
                   f"a kernel of the main path never launched: {launches}")
             gt_probe(batch, cfg)
+            fp32_cross_check()
+            train_cfg = dict(TRAIN_CFG, val_path=path)
+            dm = _MemoryData(512, TRAIN_STEPS * 256, batch, rng)
+            train_launches, trainer = phase_train_fit(
+                train_cfg, dm, os.path.join(tmp, "saved"))
+            for name, n in train_launches.items():
+                launches[name] += n
+            print(f"main path launches (serve, eval, train): {launches}")
+            phase_train_timing(trainer, dm)
+            del trainer
+            phase_train_vs_cpu(train_cfg, dm)
+            phase_train_learns(train_cfg, dm)
         finally:
             os.chdir(cwd)
-    fp32_cross_check()
 
     def row(name, source, replaces, err, rows):
         ms, plain, bnd, by = rows[B]

@@ -6,10 +6,13 @@ Plain tensor code is PyTorch; the JAX package's two Pallas kernels are
 CUDA C++ kernels under ``csrc/``, built with nvcc at first use
 (``ops/kernels.py``).
 
-Ported so far, the SBP serving and eval path: ``models`` (Darknet19 + SBP),
-``ops`` (targets, decode, normalize), ``losses``, ``train`` (eval step,
-predictor, validate), ``data`` (COCO index, val loader), ``eval`` (OKS AP).
-cv2 and PyYAML are imported only where an image or a config file is read.
+Ported so far, SBP training, serving and eval: ``models`` (Darknet19 +
+SBP), ``ops`` (augmentation, targets, decode, normalize), ``losses``,
+``optim`` (optax-chain optimizers, LR schedules), ``train`` (train and eval
+steps, state, checkpoints, ``Trainer``, predictor, validate), ``data``
+(COCO index, train and val loaders), ``eval`` (OKS AP), and the
+``train_sbp`` and ``test_sbp`` CLI modules.  cv2, PyYAML and tensorboardX
+are imported only where an image, a config file or a log is written.
 """
 
 __version__ = "0.1.0"

@@ -4,7 +4,8 @@ Counterpart of pytorch_pose_estimation_tpu/config.py (reference:
 utils/yaml_helper.py:22-30): flat-dict YAML loaded with a SafeLoader patched
 so scientific-notation scalars like ``1e-3`` parse as floats (stock PyYAML
 1.1 parses them as strings).  PyYAML is imported when a file is read, so
-the package imports without it.
+the package imports without it.  ``make_model_name`` reproduces
+utils/utility.py:13.
 """
 
 from __future__ import annotations
@@ -39,3 +40,8 @@ def load_yaml_file(path: str) -> dict:
 def get_configs(path: str) -> dict:
     """Load a flat experiment config dict from a YAML file."""
     return load_yaml_file(path)
+
+
+def make_model_name(cfg: dict) -> str:
+    """Log/checkpoint directory name: '<model>_<dataset_name>'."""
+    return cfg["model"] + "_" + cfg["dataset_name"]

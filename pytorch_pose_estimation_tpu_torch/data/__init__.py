@@ -1,9 +1,9 @@
 """Host data layer: COCO annotation index, the SBP instance DB and its
-threaded val loader.  Augmentation and targets run on the device
-(``ops/``)."""
+threaded train and val loaders.  Augmentation and targets run on the
+device (``ops/``)."""
 
 from .coco import COCO_KPT_SIGMAS, CocoAnnotations
-from .pipeline import HostLoader, collate
+from .pipeline import HostLoader, collate, pad_batch
 from .sbp_dataset import SBPCOCODataModule, load_sbp_instance_db
 
 __all__ = [
@@ -13,4 +13,5 @@ __all__ = [
     "SBPCOCODataModule",
     "collate",
     "load_sbp_instance_db",
+    "pad_batch",
 ]

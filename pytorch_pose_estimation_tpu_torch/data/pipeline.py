@@ -1,11 +1,15 @@
 """Host-side batch loader.
 
 Counterpart of pytorch_pose_estimation_tpu/data/pipeline.py (``collate``,
-``HostLoader``): a thread pool builds samples and one background thread
-prefetches batches while the device runs.  cv2 releases the GIL, so threads
-parallelize the decode work.  Batches come in record order; shuffling, the
-native whole-batch path (``batch_fn``) and the per-process shards come
-with the slices that use them.
+``pad_batch``, ``HostLoader``): a thread pool builds samples and one
+background thread prefetches batches while the device runs.  cv2 releases
+the GIL, so threads parallelize the decode work.
+
+Determinism, as in the JAX package: ``shuffle`` permutes the records with
+``np.random.RandomState((seed * 1000003 + epoch) % 2**32)``, so both
+packages' loaders yield the same instances in the same order for a seed and
+an epoch.  The native whole-batch path (``batch_fn``) and the per-process
+shards come with the slices that use them.
 """
 
 from __future__ import annotations
@@ -28,31 +32,76 @@ def collate(samples: Sequence[dict]) -> dict:
     return out
 
 
+def pad_batch(batch: dict, size: int) -> dict:
+    """Zero-pad every batch array up to ``size`` rows and attach a
+    ``pad_mask`` (1 = real row)."""
+    n = len(next(iter(batch.values())))
+    out = {}
+    for key, value in batch.items():
+        value = np.asarray(value)
+        if n < size:
+            pad = np.zeros((size - n,) + value.shape[1:], value.dtype)
+            value = np.concatenate([value, pad], axis=0)
+        out[key] = value
+    mask = np.zeros((size,), np.int32)
+    mask[:n] = 1
+    out["pad_mask"] = mask
+    return out
+
+
 class HostLoader:
     """Iterable batch loader over a record list;
-    ``sample_fn(record) -> dict of arrays`` builds one sample."""
+    ``sample_fn(record, index, epoch) -> dict of arrays`` builds one
+    sample (``index`` is the record's position in ``db``)."""
 
     def __init__(self, db: Sequence, sample_fn: Callable, batch_size: int,
-                 workers: int = 0):
+                 shuffle: bool = False, seed: int = 0,
+                 drop_last: bool = False, workers: int = 0):
         self.db = db
         self.sample_fn = sample_fn
         self.batch_size = int(batch_size)
+        self.shuffle = shuffle
+        self.seed = int(seed or 0)
+        self.drop_last = drop_last
         self.workers = max(int(workers), 0)
+        self.epoch = 0
 
-    def _batches(self) -> List[Sequence]:
-        return [self.db[i:i + self.batch_size]
-                for i in range(0, len(self.db), self.batch_size)]
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = int(epoch)
+
+    def _indices(self) -> np.ndarray:
+        idx = np.arange(len(self.db))
+        if self.shuffle:
+            rng = np.random.RandomState(
+                (self.seed * 1000003 + self.epoch) % (2 ** 32))
+            idx = rng.permutation(idx)
+        return idx
+
+    def _batches(self) -> List[np.ndarray]:
+        idx = self._indices()
+        out = []
+        for start in range(0, len(idx), self.batch_size):
+            chunk = idx[start:start + self.batch_size]
+            if self.drop_last and len(chunk) < self.batch_size:
+                break
+            out.append(chunk)
+        return out
 
     def __len__(self) -> int:
+        if self.drop_last:
+            return len(self.db) // self.batch_size
         return -(-len(self.db) // self.batch_size)
 
-    def _build(self, records: Sequence, pool) -> dict:
+    def _build(self, chunk: np.ndarray, epoch: int, pool) -> dict:
+        args = [(self.db[i], int(i), epoch) for i in chunk]
         if pool is not None:
-            return collate(list(pool.map(self.sample_fn, records)))
-        return collate([self.sample_fn(r) for r in records])
+            return collate(list(pool.map(lambda a: self.sample_fn(*a),
+                                         args)))
+        return collate([self.sample_fn(*a) for a in args])
 
     def __iter__(self):
         batches = self._batches()
+        epoch = self.epoch
         if not batches:
             return iter(())
 
@@ -74,10 +123,10 @@ class HostLoader:
 
         def producer():
             try:
-                for records in batches:
+                for chunk in batches:
                     if abandoned.is_set():
                         return
-                    if not _put(self._build(records, pool)):
+                    if not _put(self._build(chunk, epoch, pool)):
                         return
             except BaseException as exc:  # surfaced in the consumer
                 _put(exc)

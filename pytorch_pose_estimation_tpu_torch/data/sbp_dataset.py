@@ -1,11 +1,14 @@
-"""SBP (top-down, one sample per person instance) COCO data layer, val path.
+"""SBP (top-down, one sample per person instance) COCO data layer.
 
 Counterpart of pytorch_pose_estimation_tpu/data/sbp_dataset.py with the
 cv2 loader: the host decodes the JPEG, crops the clean GT bbox, resizes it
-to the model input and ships uint8 pixels plus joint metadata.  cv2 is
-imported where an image is read, so the package imports without it.  The
-train loader (with host CLAHE) and the native C++ loader come with the
-training slice.
+to the model input and ships uint8 pixels plus joint metadata; the random
+augmentation and the targets run on the device (``ops/``).  The optional
+host CLAHE on train crops is Albumentations' (LAB L channel, clip limit
+uniform in [1, 4], p=0.5 per sample), drawn from a RandomState seeded by
+(seed, epoch, index) as in the JAX package.  cv2 is imported where an
+image is read, so the package imports without it.  The native C++ loader
+comes with its own slice.
 
 Annotation sanitization follows the reference rule for rule (reference:
 dataset/sbp_coco_dataset.py:97-169):
@@ -18,7 +21,7 @@ dataset/sbp_coco_dataset.py:97-169):
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -102,26 +105,69 @@ def load_sbp_instance_db(coco: CocoAnnotations, img_dir: str,
     return db
 
 
-class SBPCOCODataModule:
-    """Builds the val instance DB and its host loader (reference datamodule
-    surface, dataset/sbp_coco_dataset.py:190-277, val side)."""
+def apply_clahe(img_rgb: np.ndarray, rng: np.random.RandomState,
+                clip_range=(1.0, 4.0), tiles=(8, 8)) -> np.ndarray:
+    """Albumentations-CLAHE semantics: clip limit drawn uniformly, applied
+    to the L channel in LAB space (reference train transform CLAHE,
+    dataset/sbp_coco_dataset.py:222)."""
+    import cv2
 
-    def __init__(self, val_path: str, img_dir: str, input_size,
-                 num_keypoints: int, workers: int, batch_size: int):
+    clip = float(rng.uniform(*clip_range))
+    lab = cv2.cvtColor(img_rgb, cv2.COLOR_RGB2LAB)
+    lab[:, :, 0] = cv2.createCLAHE(
+        clipLimit=clip, tileGridSize=tiles).apply(lab[:, :, 0])
+    return cv2.cvtColor(lab, cv2.COLOR_LAB2RGB)
+
+
+def _sample_rng(seed: int, epoch: int, index: int) -> np.random.RandomState:
+    return np.random.RandomState(
+        ((seed + 1) * 2654435761 + epoch * 1000003 + index) % (2 ** 32))
+
+
+class SBPCOCODataModule:
+    """Builds the train and val instance DBs and their host loaders (the
+    reference datamodule surface, dataset/sbp_coco_dataset.py:190-277), with
+    the JAX package's constructor arguments.  ``use_native`` may be None or
+    False: the native C++ loader is not ported yet."""
+
+    def __init__(self, train_path: Optional[str], val_path: Optional[str],
+                 input_size, output_size, num_keypoints: int, sigma: float,
+                 workers: int, batch_size: int,
+                 class_labels: Sequence[str], img_dir: Optional[str] = None,
+                 use_native: Optional[bool] = None, clahe_prob: float = 0.5,
+                 seed: int = 0, cache_images: bool = False):
+        if use_native:
+            raise NotImplementedError(
+                "the native loader is not ported; use_native must be None "
+                "or False")
+        self.train_path = train_path
         self.val_path = val_path
         self.img_dir = img_dir
         self.input_size = [int(s) for s in input_size]
+        self.output_size = [int(s) for s in output_size]
         self.num_keypoints = int(num_keypoints)
+        self.sigma = sigma
         self.workers = int(workers)
         self.batch_size = int(batch_size)
+        self.class_labels = list(class_labels)
+        # host CLAHE probability on train crops; the Trainer zeroes it when
+        # CLAHE runs on the device or is off
+        self.clahe_prob = float(clahe_prob)
+        self.seed = int(seed)
+        # opt-in host RAM cache of the cropped and resized uint8 arrays
+        # (deterministic per record: no random op precedes them)
+        self.cache_images = bool(cache_images)
+        self._crop_cache = {True: {}, False: {}}
+        self.train_db: List[dict] = []
         self.val_db: List[dict] = []
 
     def setup(self):
-        if self.val_path and os.path.exists(self.val_path):
-            self.val_db = load_sbp_instance_db(
-                CocoAnnotations(self.val_path),
-                coco_img_dir(self.img_dir, self.val_path),
-                self.num_keypoints)
+        for attr, path in (("train_db", self.train_path),
+                           ("val_db", self.val_path)):
+            if path and os.path.exists(path):
+                setattr(self, attr, load_sbp_instance_db(
+                    CocoAnnotations(path), coco_img_dir(self.img_dir, path),
+                    self.num_keypoints))
 
     def _metadata(self, rec: dict) -> dict:
         """Joint coords crop frame -> resized-input frame (the reference's
@@ -160,12 +206,32 @@ class SBPCOCODataModule:
         return cv2.resize(crop, (in_w, in_h),
                           interpolation=cv2.INTER_LINEAR)
 
-    def _sample(self, rec: dict) -> dict:
-        out = self._metadata(rec)
-        out["image"] = self._load_crop(rec)
-        return out
+    def _sample_fn(self, train: bool):
+        cache = self._crop_cache[train] if self.cache_images else None
+
+        def fn(rec, index, epoch):
+            image = cache.get(index) if cache is not None else None
+            if image is None:
+                image = self._load_crop(rec)
+                if cache is not None:
+                    cache[index] = image
+            if train and self.clahe_prob > 0:
+                rng = _sample_rng(self.seed, epoch, index)
+                if rng.uniform() < self.clahe_prob:
+                    image = apply_clahe(image, rng)
+            out = self._metadata(rec)
+            out["image"] = image
+            return out
+        return fn
+
+    def _loader(self, db, train: bool) -> HostLoader:
+        return HostLoader(db, self._sample_fn(train),
+                          batch_size=self.batch_size, shuffle=train,
+                          seed=self.seed, drop_last=train,
+                          workers=self.workers)
+
+    def train_loader(self) -> HostLoader:
+        return self._loader(self.train_db, True)
 
     def val_loader(self) -> HostLoader:
-        return HostLoader(self.val_db, self._sample,
-                          batch_size=self.batch_size,
-                          workers=self.workers)
+        return self._loader(self.val_db, False)

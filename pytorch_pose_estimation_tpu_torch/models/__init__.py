@@ -3,7 +3,7 @@ from .darknet import Darknet19
 from .initialize import lecun_normal_
 from .layers import ConvBn, ConvBnAct, ConvBnRelu, DeconvBnRelu
 from .sbp import SBP
-from .summary import count_params
+from .summary import count_params, print_summary
 
 __all__ = [
     "ConvBn",
@@ -16,4 +16,5 @@ __all__ = [
     "from_jax_variables",
     "lecun_normal_",
     "load_state_dict_file",
+    "print_summary",
 ]

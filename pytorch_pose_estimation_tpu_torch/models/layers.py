@@ -5,7 +5,9 @@ models/layers/conv_block.py:4-53).  Parameters are fp32; ``dtype`` is the
 compute type of the convolutions.  With ``dtype=torch.bfloat16`` a block
 casts its input and weight to bf16 for the convolution, runs BatchNorm in
 fp32 and casts its output back to bf16, as the JAX blocks do.  BN uses
-eps=1e-5 and torch momentum 0.1 (flax momentum 0.9).
+eps=1e-5 and torch momentum 0.1 (flax momentum 0.9), and updates its
+running variance with the biased batch variance, as flax does
+(``BatchNorm2d``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,39 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm (eps 1e-5) whose train-mode update of the running
+    statistics is flax's: ``running = 0.9 running + 0.1 batch_stat``, with
+    the biased batch variance.  torch's own rule adds the unbiased one,
+    larger by n/(n-1) for n values per channel, which matters for the deep,
+    small maps (n = 8 at batch 2 in layer5 of a 64x64 input).
+
+    The normalization is torch's, with the batch statistics.  torch's kernel
+    still does the update: it is handed the running variance divided by
+    s = (n-1)/n, adds 0.1 of the unbiased variance (= biased / s), and the
+    sum times s is flax's update.  Eval mode is torch's.  The state_dict
+    keys are those of ``nn.BatchNorm2d``."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        if n < 2:
+            raise ValueError("BatchNorm2d needs more than one value per "
+                             f"channel in train mode, got input {x.shape}")
+        s = (n - 1) / n
+        running_var = self.running_var / s
+        out = F.batch_norm(x, self.running_mean, running_var, self.weight,
+                           self.bias, True, self.momentum, self.eps)
+        with torch.no_grad():
+            self.running_var.copy_(running_var * s)
+            self.num_batches_tracked.add_(1)
+        return out
 
 
 class ConvBnAct(nn.Module):
@@ -28,7 +63,7 @@ class ConvBnAct(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride,
                               (kernel_size - 1) // 2, bias=False)
-        self.bn = nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
+        self.bn = BatchNorm2d(out_channels)
         self.activation = activation
         self.dtype = dtype
 
@@ -70,7 +105,7 @@ class DeconvBnRelu(nn.Sequential):
         super().__init__(
             nn.ConvTranspose2d(in_channels, out_channels, 4, 2, 1,
                                bias=False),
-            nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1))
+            BatchNorm2d(out_channels))
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

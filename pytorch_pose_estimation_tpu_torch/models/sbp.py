@@ -8,15 +8,24 @@ the decode.  Module names give the reference's state_dict keys
 (``backbone_features_module.*``, ``deconv_N.{0,1}.*``, ``sbp_head.0.weight``),
 the keys ``models/torch_import.py`` of the JAX package reads.
 
+``remat=True`` recomputes the backbone in the backward pass instead of
+keeping its activations (``torch.utils.checkpoint``, the JAX package's
+``nn.remat``), in train mode.  The recomputation would update the BN running
+statistics a second time; flax's remat drops what that pass computes, so the
+port restores the backbone's BN buffers after it.
+
 Shapes at a 256x192 input: [B, 3, 256, 192] -> [B, 1024, 8, 6] -> 16x12 ->
 32x24 -> [B, 512, 64, 48] -> logits [B, K, 64, 48], always fp32.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .darknet import OUT_CHANNELS, Darknet19
 from .layers import DeconvBnRelu
@@ -24,11 +33,24 @@ from .layers import DeconvBnRelu
 DECONV_CHANNELS = 512
 
 
+@contextlib.contextmanager
+def _restoring_buffers(module: nn.Module):
+    """Put ``module``'s buffers back as they were on entry."""
+    saved = [b.clone() for b in module.buffers()]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, s in zip(module.buffers(), saved):
+                b.copy_(s)
+
+
 class SBP(nn.Module):
     def __init__(self, num_keypoints: int = 17,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         self.backbone_features_module = Darknet19(dtype=dtype)
         self.deconv_1 = DeconvBnRelu(OUT_CHANNELS, DECONV_CHANNELS, dtype)
         self.deconv_2 = DeconvBnRelu(DECONV_CHANNELS, DECONV_CHANNELS, dtype)
@@ -38,7 +60,13 @@ class SBP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: [B, 3, H, W] fp32 -> logits [B, K, H/4, W/4] fp32."""
-        x = self.backbone_features_module(x)
+        backbone = self.backbone_features_module
+        if self.remat and self.training and torch.is_grad_enabled():
+            x = checkpoint(backbone, x, use_reentrant=False,
+                           context_fn=lambda: (contextlib.nullcontext(),
+                                               _restoring_buffers(backbone)))
+        else:
+            x = backbone(x)
         x = self.deconv_3(self.deconv_2(self.deconv_1(x)))
         head = self.sbp_head[0]
         x = F.conv2d(x.to(self.dtype), head.weight.to(self.dtype))

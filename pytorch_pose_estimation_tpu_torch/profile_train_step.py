@@ -1,0 +1,189 @@
+"""Profile the SBP train step on one GPU at full width (darknet19 SBP,
+256x192 input, bf16, sgd nesterov, device CLAHE), seeded weights and
+seeded uint8 crops already on the card:
+
+    python -m pytorch_pose_estimation_tpu_torch.profile_train_step \\
+        [--batch 256] [--steps 5]
+
+Prints the card's name and power limit, the step time by host clock
+(synchronized, after warm-up), each part's device time by CUDA events
+(augment, targets, forward_backward, optimizer; the mean over the steps),
+the augmentation's own parts (rotation, CLAHE, color jitter, crop) timed
+alone the same way, then a ``torch.profiler`` trace of the same steps: the device's busy share
+of the window and the kernels with the most device time, and the same
+time grouped into kinds (convolution, matmul, elementwise, ...).
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from . import optim
+from .ops import image
+from .train import build_model, make_sbp_steps
+
+_PARTS = ("augment", "targets", "forward_backward", "optimizer")
+# kernel-name fragments -> kind, first match wins
+_KINDS = (("sbp_heatmaps", "K1"), ("decode_sbp", "K2"),
+          ("implicit_gemm", "convolution"), ("convolve", "convolution"),
+          ("conv", "convolution"), ("gemm", "matmul"),
+          ("nchwtonhwc", "layout transpose"),
+          ("nhwctonchw", "layout transpose"), ("bn_", "batch norm"),
+          ("batch_norm", "batch norm"), ("max_pool", "max pool"),
+          ("copy", "copy / cast"), ("reduce", "reduction"),
+          ("index", "index / scatter / gather"),
+          ("gather", "index / scatter / gather"),
+          ("scatter", "index / scatter / gather"),
+          ("elementwise", "elementwise"))
+
+
+def _kind(name: str) -> str:
+    low = name.lower()
+    for fragment, kind in _KINDS:
+        if fragment in low:
+            return kind
+    return "other"
+
+
+def _device_ms(fn, n=5) -> float:
+    """Mean device time of ``fn`` by CUDA events, after one warm-up."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _augment_parts(batch, gen, host_gen) -> dict:
+    """The augmentation's parts at the train step's inputs and draws."""
+    b = batch["image"].shape[0]
+    draws = image.sample_augment(gen, b, (256, 192), clahe_prob=0.5,
+                                 host_gen=host_gen)
+    imgs = image.normalize_batch(batch["image"])
+    jit_in = imgs.to(torch.bfloat16)
+    return {
+        "normalize": _device_ms(lambda: image.normalize_batch(
+            batch["image"])),
+        "rotation": _device_ms(lambda: image.rotate_shear3_grouped(
+            imgs, draws.angles, 128.0, 96.0)),
+        "clahe": _device_ms(lambda: image.clahe_luma_batch(
+            imgs, draws.clahe, draws.clahe_clip)),
+        "color jitter (bf16)": _device_ms(lambda: image.color_jitter_batch(
+            jit_in, draws.brightness, draws.contrast, draws.saturation,
+            draws.hue, draws.jitter_order, draws.jitter)),
+        "crop": _device_ms(lambda: image.crop_resize_mxu(
+            jit_in, draws.x0, draws.y0, draws.cw, draws.ch)),
+        "draws": _device_ms(lambda: image.sample_augment(
+            gen, b, (256, 192), clahe_prob=0.5, host_gen=host_gen))}
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--batch", type=int, default=256)
+    parser.add_argument("--steps", type=int, default=5)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train_step: CUDA is not available")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+
+    cfg = {"num_keypoints": 17, "precision": "bf16", "seed": 0}
+    model = build_model(cfg).cuda().train()
+    opt = optim.get_optimizer("sgd", list(model.parameters()), lr=1e-3,
+                              momentum=0.9, weight_decay=5e-3, nesterov=True)
+    step, _ = make_sbp_steps(model, opt, [256, 192], (64, 48), 17, 2.0, 0.25,
+                             augment={"clahe_prob": 0.5})
+    rng = np.random.RandomState(0)
+    b = args.batch
+    batch = {
+        "image": torch.from_numpy(rng.randint(0, 256, (b, 256, 192, 3),
+                                              dtype=np.uint8)).cuda(),
+        "joints": torch.from_numpy(np.stack(
+            [rng.uniform(0, 192, (b, 17)), rng.uniform(0, 256, (b, 17))],
+            -1).astype(np.float32)).cuda(),
+        "joints_vis": torch.from_numpy(
+            (rng.rand(b, 17) > 0.2).astype(np.float32)).cuda()}
+    gen = torch.Generator("cuda").manual_seed(0)
+    host_gen = torch.Generator().manual_seed(0)
+    for _ in range(3):
+        step(batch, gen, host_gen)
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        step(batch, gen, host_gen)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / args.steps * 1e3
+    print(f"train step at batch {b}: {step_ms:.2f} ms host clock "
+          f"({b * 1e3 / step_ms:.0f} images/s), mean of {args.steps}")
+
+    parts = defaultdict(float)
+    for _ in range(args.steps):
+        events = [torch.cuda.Event(enable_timing=True)]
+        events[0].record()
+
+        def marker(name, events=events):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+
+        step(batch, gen, host_gen, marker=marker)
+        torch.cuda.synchronize()
+        for i, name in enumerate(_PARTS):
+            parts[name] += events[i].elapsed_time(events[i + 1])
+    print("parts (CUDA events, mean): " + ", ".join(
+        f"{k} {v / args.steps:.2f} ms" for k, v in parts.items()))
+    print("augmentation parts alone (CUDA events): " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in
+        _augment_parts(batch, gen, host_gen).items()))
+
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(args.steps):
+            step(batch, gen, host_gen)
+        torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - t0) * 1e3
+    # device events, less the ranges that annotate them (they overlap)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    if not kernels:
+        print("torch.profiler recorded no device events")
+        return
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    by_name = defaultdict(lambda: [0.0, 0])
+    by_kind = defaultdict(float)
+    for e in kernels:
+        by_name[e.name][0] += e.device_time_total / 1e3
+        by_name[e.name][1] += 1
+        by_kind[_kind(e.name)] += e.device_time_total / 1e3
+    print(f"profiler: {len(kernels)} device events over {args.steps} steps, "
+          f"device busy {busy_ms / args.steps:.2f} ms a step "
+          f"({busy_ms / window_ms:.1%} of the {window_ms:.1f} ms window, "
+          f"which includes the profiler's own cost)")
+    print("device time by kind, a step: " + ", ".join(
+        f"{k} {v / args.steps:.2f} ms" for k, v in
+        sorted(by_kind.items(), key=lambda kv: -kv[1])))
+    print("top kernels by device time, a step (ms, launches):")
+    for name, (ms, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:25]:
+        print(f"  {ms / args.steps:8.3f}  {n // args.steps:5d}  {name[:110]}")
+
+
+if __name__ == "__main__":
+    main()

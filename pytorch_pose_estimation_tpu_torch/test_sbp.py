@@ -18,12 +18,16 @@ from .train import load_model, validate
 
 def test(cfg: dict, ckpt: str, device: str = "cuda"):
     data_module = SBPCOCODataModule(
+        train_path=None,
         val_path=cfg["val_path"],
         img_dir=cfg["img_dir"],
         input_size=cfg["input_size"],
+        output_size=cfg["output_size"],
         num_keypoints=cfg["num_keypoints"],
+        sigma=cfg["sigma"],
         workers=cfg["workers"],
         batch_size=cfg["batch_size"],
+        class_labels=cfg.get("class_labels", ()),
     )
     data_module.setup()
     model = load_model(cfg, ckpt, device)

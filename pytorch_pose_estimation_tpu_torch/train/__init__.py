@@ -1,15 +1,30 @@
-from .steps import make_sbp_eval_step
-from .trainer import (apply_precision_config, build_metric, build_model,
-                      load_model, load_sbp_predictor, resolve_device,
-                      validate)
+from .checkpoint import (CheckpointManager, extract_backbone,
+                         load_pretrained, next_version_dir,
+                         restore_checkpoint, restore_checkpoint_flexible,
+                         save_checkpoint)
+from .state import TrainState
+from .steps import make_sbp_eval_step, make_sbp_steps
+from .trainer import (Trainer, apply_precision_config, build_metric,
+                      build_model, load_model, load_sbp_predictor,
+                      resolve_device, validate)
 
 __all__ = [
+    "CheckpointManager",
+    "TrainState",
+    "Trainer",
     "apply_precision_config",
     "build_metric",
     "build_model",
+    "extract_backbone",
     "load_model",
+    "load_pretrained",
     "load_sbp_predictor",
     "make_sbp_eval_step",
+    "make_sbp_steps",
+    "next_version_dir",
     "resolve_device",
+    "restore_checkpoint",
+    "restore_checkpoint_flexible",
+    "save_checkpoint",
     "validate",
 ]

@@ -1,0 +1,152 @@
+"""Checkpoints in ``torch.save`` form, with the JAX package's directory and
+selection semantics.
+
+Counterpart of pytorch_pose_estimation_tpu/train/checkpoint.py (reference
+behavior: train_sbp.py:55-67, Lightning ModelCheckpoint):
+``saved/<model>_<dataset>/version_N/checkpoints/`` holds ``epoch=E-step=S``
+snapshots, ``last`` and ``best`` (by val_loss), each a single file with a
+``<name>.meta.json`` beside it ({"epoch", "step", "val_loss"}).  A
+checkpoint holds {"step", "model", "optimizer", "meta"}: the model's
+state_dict (the reference's keys), the optimizer's (its update count
+included) and the same meta as the sidecar.
+
+Every file is written under a temporary name and then renamed with
+``os.replace``, so a kill in the middle of a save leaves the previous file
+whole and only a ``*.tmp*`` file behind.  Weight surgery (the reference's
+saving_weights.py:22-42): ``extract_backbone`` and ``load_pretrained``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from typing import Dict, Optional
+
+import torch
+
+from ..models import load_state_dict_file
+from .state import TrainState
+
+_BACKBONE = "backbone_features_module."
+
+
+def next_version_dir(save_dir: str, model_name: str) -> str:
+    base = os.path.join(save_dir, model_name)
+    os.makedirs(base, exist_ok=True)
+    n = 0
+    while os.path.exists(os.path.join(base, f"version_{n}")):
+        n += 1
+    path = os.path.join(base, f"version_{n}")
+    os.makedirs(os.path.join(path, "checkpoints"), exist_ok=True)
+    return path
+
+
+def _tmp(path: str) -> str:
+    return f"{path}.tmp{os.getpid()}"
+
+
+def _save_atomic(obj, path: str) -> None:
+    tmp = _tmp(path)
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def _write_meta(path: str, meta: dict) -> None:
+    tmp = _tmp(path + ".meta.json")
+    with open(tmp, "w") as f:
+        json.dump(meta, f)
+    os.replace(tmp, path + ".meta.json")
+
+
+def save_checkpoint(path: str, state: TrainState,
+                    meta: Optional[dict] = None) -> str:
+    """Write ``state`` (and ``meta``, also as the sidecar) to ``path``."""
+    path = os.path.abspath(path)
+    meta = dict(meta or {"step": state.step})
+    _save_atomic(dict(state.state_dict(), meta=meta), path)
+    _write_meta(path, meta)
+    return path
+
+
+class CheckpointManager:
+    """save_epoch / save_last, and ``best`` by val_loss."""
+
+    def __init__(self, ckpt_dir: str):
+        self.ckpt_dir = os.path.abspath(ckpt_dir)
+        os.makedirs(self.ckpt_dir, exist_ok=True)
+        self.best_val_loss = float("inf")
+        self.best_path: Optional[str] = None
+
+    def save_epoch(self, state: TrainState, epoch: int,
+                   val_loss: Optional[float] = None) -> str:
+        meta = {"epoch": epoch, "step": state.step, "val_loss": val_loss}
+        path = save_checkpoint(os.path.join(
+            self.ckpt_dir, f"epoch={epoch}-step={state.step}"), state, meta)
+        if val_loss is not None and val_loss < self.best_val_loss:
+            self.best_val_loss = val_loss
+            best = os.path.join(self.ckpt_dir, "best")
+            shutil.copyfile(path, _tmp(best))
+            os.replace(_tmp(best), best)
+            _write_meta(best, meta)
+            self.best_path = path
+        return path
+
+    def save_last(self, state: TrainState, epoch: int,
+                  val_loss: Optional[float] = None) -> str:
+        return save_checkpoint(
+            os.path.join(self.ckpt_dir, "last"), state,
+            {"epoch": epoch, "step": state.step, "val_loss": val_loss})
+
+
+def _load(path: str) -> dict:
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def restore_checkpoint(path: str, state: TrainState) -> dict:
+    """Load a full checkpoint into ``state`` (model, optimizer, step) in
+    place; returns its meta."""
+    blob = _load(path)
+    state.load_state_dict(blob)
+    return dict(blob.get("meta") or {})
+
+
+def restore_checkpoint_flexible(path: str, state: TrainState) -> dict:
+    """A full checkpoint, or else a bare model state_dict or Lightning
+    checkpoint (e.g. converted reference weights) into the model only;
+    returns the meta ({} for the latter)."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(blob, dict) and "optimizer" in blob:
+        state.load_state_dict(blob)
+        return dict(blob.get("meta") or {})
+    state.model.load_state_dict(load_state_dict_file(path))
+    return {}
+
+
+def _model_state(path: str) -> Dict[str, torch.Tensor]:
+    """The model state_dict of a checkpoint, a bare or partial state_dict
+    or a Lightning checkpoint."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(blob, dict) and "model" in blob and "optimizer" in blob:
+        return blob["model"]
+    return load_state_dict_file(path)
+
+
+def extract_backbone(ckpt_path: str, out_path: str) -> str:
+    """Save only the backbone's entries of a checkpoint's model state (the
+    reference's 'pretrained_weights.pt' warm-start artifact)."""
+    sub = {k: v for k, v in _model_state(ckpt_path).items()
+           if k.startswith(_BACKBONE)}
+    out_path = os.path.abspath(out_path)
+    _save_atomic(sub, out_path)
+    return out_path
+
+
+def load_pretrained(state: TrainState, pretrained_path: str) -> None:
+    """Overlay a partial state_dict (or a checkpoint's model state) onto
+    the model where the keys match; other keys of either side are left
+    alone (strict=False warm start, reference: train_sbp.py:44-46)."""
+    own = state.model.state_dict()
+    src = _model_state(pretrained_path)
+    own.update({k: v for k, v in src.items() if k in own})
+    state.model.load_state_dict(own)

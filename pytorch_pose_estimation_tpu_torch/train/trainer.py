@@ -1,9 +1,21 @@
-"""SBP serving and validation.
+"""SBP training, serving and validation.
 
 Counterpart of pytorch_pose_estimation_tpu/train/trainer.py:
 ``apply_precision_config``, ``build_model``, ``build_metric``,
-``load_sbp_predictor`` and, for SBP, ``Trainer.validate``.  Training
-(``Trainer.fit``, checkpoints, resume) comes with the training slice.
+``load_sbp_predictor``, ``validate`` and the ``Trainer`` for SBP, which
+reproduces the reference training contract (train_sbp.py:55-79):
+
+* validation every ``trainer_options.check_val_every_n_epoch`` epochs,
+* TensorBoard logs (train_loss / val_loss / val_mAP / lr-step) when
+  tensorboardX is installed,
+* checkpoints under ``saved/<model>_<dataset>/version_N/checkpoints`` with
+  best-by-val_loss and last, resume and ``resume="auto"``,
+* early stopping on val_loss with patience 30 validation rounds,
+* an optional partial warm start from ``model_pretrained``.
+
+Each train step runs augmentation, targets (kernel K1), forward, backward
+and the update on the device; the host loader prefetches the next batches
+meanwhile, and the batch is copied from pinned memory without a sync.
 
 Entry points run on the card by default (``device="cuda"``) and raise when
 CUDA is not available; they never carry on quietly on the CPU.  Pass
@@ -12,17 +24,26 @@ CUDA is not available; they never carry on quietly on the CPU.  Pass
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import json
+import os
+import time
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..config import make_model_name
 from ..eval.metrics import SBPmAPCOCO
 from ..models import SBP, lecun_normal_, load_state_dict_file
+from ..models.summary import print_summary
 from ..ops.decode import decode_sbp_fast
 from ..ops.image import normalize_batch
-from .steps import make_sbp_eval_step
+from ..optim import build_optimizer_from_cfg
+from .checkpoint import (CheckpointManager, load_pretrained,
+                         next_version_dir, restore_checkpoint)
+from .state import TrainState
+from .steps import make_sbp_eval_step, make_sbp_steps
 
 _EVAL_KEYS = ("image", "joints", "joints_vis")
 
@@ -52,11 +73,13 @@ def apply_precision_config(cfg: dict) -> str:
 
 
 def build_model(cfg: dict) -> SBP:
-    """SBP at the configured precision, initialized like the JAX package
-    (lecun_normal) from a generator seeded with ``cfg['seed']`` (0)."""
+    """SBP at the configured precision, with ``cfg['remat']``, initialized
+    like the JAX package (lecun_normal) from a generator seeded with
+    ``cfg['seed']`` (0)."""
     precision = apply_precision_config(cfg)
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
-    model = SBP(num_keypoints=int(cfg["num_keypoints"]), dtype=dtype)
+    model = SBP(num_keypoints=int(cfg["num_keypoints"]), dtype=dtype,
+                remat=bool(cfg.get("remat", False)))
     gen = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
     return lecun_normal_(model, gen)
 
@@ -128,3 +151,258 @@ def validate(cfg: dict, data_module, model: nn.Module, device="cuda",
     if verbose:
         print(f"val_loss={val_loss:.4f} val_mAP={val_map:.4f}")
     return val_loss, val_map
+
+
+_TRAIN_KEYS = ("image", "joints", "joints_vis")
+
+
+class Trainer:
+    """SBP training on one device (``device="cuda"`` by default; raises
+    without CUDA).  ``data_module`` gives ``train_loader()`` (with
+    ``set_epoch``), ``val_loader()`` and ``val_db``.  ``step`` and the
+    epoch counter continue across a resume."""
+
+    def __init__(self, cfg: dict, data_module, kind: str = "sbp",
+                 logging: bool = True, device="cuda"):
+        if kind != "sbp":
+            raise ValueError(f"the port trains SBP only so far, got {kind!r}")
+        self.cfg = cfg
+        self.kind = kind
+        self.dm = data_module
+        self.device = resolve_device(device)
+
+        model = build_model(cfg).to(self.device).train()
+        optimizer, schedule = build_optimizer_from_cfg(cfg, model)
+        self.state = TrainState(model, optimizer, schedule)
+
+        # CLAHE placement: 'host' = cv2 on the crop (Albumentations'
+        # semantics), 'device' = luma CLAHE in the train step, 'off'
+        clahe_mode = cfg.get("clahe", "host")
+        if clahe_mode not in ("host", "device", "off"):
+            raise ValueError(f"clahe must be host, device or off, got "
+                             f"{clahe_mode!r}")
+        if data_module is not None and clahe_mode != "host" and \
+                hasattr(data_module, "clahe_prob"):
+            data_module.clahe_prob = 0.0
+        augment = {"clahe_prob": 0.5} if clahe_mode == "device" else {}
+        # user overrides: rotate_limit / scale_range / ratio_range /
+        # color_jitter / rotate_prob / jitter_prob / angle_groups
+        augment.update(cfg.get("augment_options") or {})
+        self.train_step, self.eval_step = make_sbp_steps(
+            model, optimizer, cfg["input_size"], tuple(cfg["output_size"]),
+            int(cfg["num_keypoints"]), float(cfg["sigma"]),
+            float(cfg["conf_threshold"]), augment=augment)
+
+        if cfg.get("model_pretrained"):
+            path = cfg["model_pretrained"]
+            if os.path.exists(path):
+                load_pretrained(self.state, path)
+                print(f"warm-started from {path}")
+            else:
+                print(f"model_pretrained not found, skipping: {path}")
+
+        self.version_dir = None
+        self.writer = None
+        self.ckpt = None
+        if logging:
+            self.version_dir = next_version_dir(
+                cfg.get("save_dir", "./saved"), make_model_name(cfg))
+            self.ckpt = CheckpointManager(
+                os.path.join(self.version_dir, "checkpoints"))
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError:
+                SummaryWriter = None
+            if SummaryWriter is not None:
+                self.writer = SummaryWriter(self.version_dir)
+
+        self.global_step = 0
+        self.log_every = int(cfg.get("log_every_n_steps", 50))
+        # profiling window [start_step, end_step): a torch.profiler trace
+        # of those steps into the run's version dir
+        prof = (cfg.get("trainer_options") or {}).get("profile_steps")
+        self.profile_steps = tuple(prof) if prof else None
+        self._profiler = None
+
+    @property
+    def model(self) -> nn.Module:
+        return self.state.model
+
+    # ------------------------------------------------------------------
+    def summary(self):
+        h, w = self.cfg["input_size"]
+        return print_summary(self.model, (1, 3, int(h), int(w)))
+
+    def _log(self, tag: str, value: float, step: int):
+        if self.writer is not None:
+            self.writer.add_scalar(tag, value, step)
+
+    def _device_batch(self, batch: dict, keys: Sequence[str]) -> dict:
+        """numpy batch -> tensors on the device; on the card the copy
+        leaves from pinned memory and does not wait for the device."""
+        out = {}
+        for k in keys:
+            t = torch.from_numpy(np.asarray(batch[k]))
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out[k] = t
+        return out
+
+    def _profile(self):
+        """Start or stop the torch.profiler trace at the window's edges."""
+        if not self.profile_steps:
+            return
+        start, stop = self.profile_steps
+        if self._profiler is None and self.global_step == start:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=activities)
+            self._profiler.start()
+        elif self._profiler is not None and self.global_step >= stop:
+            self._profiler.stop()
+            out_dir = self.version_dir or self.cfg.get("save_dir", "./saved")
+            os.makedirs(out_dir, exist_ok=True)
+            self._profiler.export_chrome_trace(os.path.join(
+                out_dir, f"trace_steps_{start}-{stop}.json"))
+            self._profiler = None
+
+    # ------------------------------------------------------------------
+    def _find_auto_resume(self) -> Optional[str]:
+        """Highest-step checkpoint across version dirs (preemption
+        recovery): 'last' (its step from the sidecar) or ``epoch=E-step=S``;
+        ties prefer 'last'.  'best' is left out (resuming from it would
+        rewind training to the best-val epoch), and so are half-written
+        ``*.tmp*`` files and the sidecars."""
+        base = os.path.join(self.cfg.get("save_dir", "./saved"),
+                            make_model_name(self.cfg))
+        if not os.path.isdir(base):
+            return None
+        candidates = []  # (step, prefer_last, path)
+        for v in os.listdir(base):
+            cdir = os.path.join(base, v, "checkpoints")
+            if not v.startswith("version_") or not os.path.isdir(cdir):
+                continue
+            for name in os.listdir(cdir):
+                path = os.path.join(cdir, name)
+                if not os.path.isfile(path) or ".tmp" in name or \
+                        name.endswith(".meta.json"):
+                    continue
+                if name == "last":
+                    meta = self._read_ckpt_meta(path)
+                    candidates.append((int(meta.get("step", 0)), 1, path))
+                elif name.startswith("epoch=") and "-step=" in name:
+                    try:
+                        step = int(name.split("-step=")[1])
+                    except ValueError:
+                        continue
+                    candidates.append((step, 0, path))
+        if not candidates:
+            return None
+        return max(candidates)[2]
+
+    @staticmethod
+    def _read_ckpt_meta(path: str) -> dict:
+        try:
+            with open(path + ".meta.json") as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return {}
+
+    def fit(self, resume: Optional[str] = None) -> TrainState:
+        cfg = self.cfg
+        if resume == "auto":
+            resume = self._find_auto_resume()
+            print(f"auto-resume: {resume or 'no checkpoint found'}")
+        start_epoch = 0
+        if resume:
+            # continue the run: the epoch from the checkpoint's meta, the
+            # step from the restored optimizer's update count
+            meta = restore_checkpoint(resume, self.state)
+            if "epoch" in meta:
+                start_epoch = int(meta["epoch"]) + 1
+            self.global_step = self.state.step
+            print(f"resuming at epoch {start_epoch} "
+                  f"(global step {self.global_step})")
+        trainer_options = cfg.get("trainer_options", {}) or {}
+        val_every = int(trainer_options.get("check_val_every_n_epoch", 1))
+        patience = int(cfg.get("early_stop_patience", 30))
+        max_epochs = int(cfg["epochs"])
+
+        # Lightning-style sanity validation: a few val batches before
+        # training, so that a broken eval path shows at once
+        sanity = int(trainer_options.get("num_sanity_val_steps", 0))
+        if sanity > 0 and self.dm.val_db:
+            self.model.eval()
+            for i, batch in enumerate(self.dm.val_loader()):
+                if i >= sanity:
+                    break
+                self.eval_step(self._device_batch(batch, _TRAIN_KEYS))
+            self.model.train()
+            print(f"sanity validation: {sanity} batch(es) ok")
+
+        # a resumed run draws a fresh augmentation stream instead of
+        # replaying the first epochs' draws
+        seed = int(cfg.get("seed", 0)) * 1000003 + start_epoch
+        gen = torch.Generator(self.device).manual_seed(seed)
+        host_gen = torch.Generator().manual_seed(seed)
+
+        best_val = float("inf")
+        bad_rounds = 0
+        train_loader = self.dm.train_loader()
+        for epoch in range(start_epoch, max_epochs):
+            train_loader.set_epoch(epoch)
+            epoch_losses = []
+            t0 = time.time()
+            n_img = 0
+            for batch in train_loader:
+                self._profile()
+                loss = self.train_step(
+                    self._device_batch(batch, _TRAIN_KEYS), gen, host_gen)
+                self.global_step += 1
+                n_img += len(batch["image"])
+                # keep the device scalar: no host sync per step
+                epoch_losses.append(loss)
+                if self.global_step % self.log_every == 0:
+                    self._log("train_loss", float(loss), self.global_step)
+                    self._log("lr-step", float(self.state.schedule(
+                        self.global_step - 1)), self.global_step)
+            self._profile()
+            mean_loss = float(torch.stack(epoch_losses).mean()) if \
+                epoch_losses else float("nan")
+            dt = time.time() - t0
+            print(f"epoch {epoch}: train_loss={mean_loss:.4f} "
+                  f"({n_img / max(dt, 1e-9):.1f} img/s)", flush=True)
+
+            val_loss = None
+            if (epoch + 1) % val_every == 0 and self.dm.val_db:
+                val_loss, val_map = self.validate(verbose=False)
+                self._log("val_loss", val_loss, self.global_step)
+                self._log("val_mAP", val_map, self.global_step)
+                print(f"epoch {epoch}: val_loss={val_loss:.4f} "
+                      f"val_mAP={val_map:.4f}")
+                if self.ckpt and (epoch + 1) % int(
+                        cfg.get("save_freq", 1)) == 0:
+                    self.ckpt.save_epoch(self.state, epoch, val_loss)
+                if val_loss < best_val - 1e-12:
+                    best_val = val_loss
+                    bad_rounds = 0
+                else:
+                    bad_rounds += 1
+            if self.ckpt and (epoch + 1) % int(
+                    cfg.get("save_last_every_n_epochs", 1)) == 0:
+                self.ckpt.save_last(self.state, epoch, val_loss)
+            if bad_rounds >= patience:
+                print(f"early stopping at epoch {epoch} "
+                      f"(no val_loss improvement in {patience} rounds)")
+                break
+        return self.state
+
+    def validate(self, verbose: bool = True) -> Tuple[float, float]:
+        """``validate`` on the data module's val loader, then the model is
+        put back in train mode.  Returns (val_loss, val_mAP)."""
+        try:
+            return validate(self.cfg, self.dm, self.model, self.device,
+                            verbose)
+        finally:
+            self.model.train()

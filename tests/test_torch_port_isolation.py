@@ -1,8 +1,8 @@
 """The port stands alone: importing any of its modules (and chip_smoke.py)
-loads no jax and nothing of the JAX package, and needs neither cv2 nor
-PyYAML; its entry points default to the GPU and raise without one; the
-kernel module imports without nvcc and fails clearly when asked to build
-without it."""
+loads no jax and nothing of the JAX package, and needs neither cv2, PyYAML
+nor tensorboardX; its entry points (the Trainer and the train_sbp module
+among them) default to the GPU and raise without one; the kernel module
+imports without nvcc and fails clearly when asked to build without it."""
 
 import os
 import subprocess
@@ -17,7 +17,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
 import pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "cv2", "yaml"):
+for name in ("jax", "jaxlib", "flax", "optax", "cv2", "yaml", "tensorboardX"):
     sys.modules[name] = None  # any import of them raises ImportError
 import pytorch_pose_estimation_tpu_torch as port
 names = [m.name for m in
@@ -25,7 +25,7 @@ names = [m.name for m in
 for name in names:
     __import__(name)
 import chip_smoke
-roots = ("jax", "jaxlib", "flax", "pytorch_pose_estimation_tpu")
+roots = ("jax", "jaxlib", "flax", "optax", "pytorch_pose_estimation_tpu")
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m in roots or m.startswith(tuple(r + "." for r in roots))))
 print(len(names), bad)
@@ -52,6 +52,26 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         load_sbp_predictor(cfg, None)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         validate(cfg, None, None)
+
+
+def test_trainer_and_train_sbp_default_to_cuda_and_raise_without_it(
+        tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from pytorch_pose_estimation_tpu_torch import train_sbp
+    from pytorch_pose_estimation_tpu_torch.train import Trainer
+    cfg = {"model": "simple-baselines-pose", "dataset_name": "coco",
+           "train_path": str(tmp_path / "none.json"),
+           "val_path": str(tmp_path / "none.json"), "img_dir": str(tmp_path),
+           "input_size": [64, 48], "output_size": [16, 12],
+           "num_keypoints": 17, "sigma": 2, "conf_threshold": 0.25,
+           "workers": 0, "batch_size": 2, "class_labels": [], "epochs": 1,
+           "save_dir": str(tmp_path / "saved"), "optimizer": "sgd"}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(cfg, None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_sbp.train(cfg)
+    assert not (tmp_path / "saved").exists()  # nothing written first
 
 
 def test_kernel_wrappers_take_only_cuda_tensors():

@@ -55,9 +55,11 @@ def setup(tmp_path_factory):
         num_keypoints=17, sigma=SIGMA, workers=2, batch_size=4,
         class_labels=COCO_KP_NAMES, use_native=False)
     jax_dm.setup()
-    dm = SBPCOCODataModule(val_path=json_path, img_dir=root,
-                           input_size=cfg["input_size"], num_keypoints=17,
-                           workers=2, batch_size=4)
+    dm = SBPCOCODataModule(
+        train_path=None, val_path=json_path, img_dir=root,
+        input_size=cfg["input_size"], output_size=cfg["output_size"],
+        num_keypoints=17, sigma=SIGMA, workers=2, batch_size=4,
+        class_labels=COCO_KP_NAMES)
     dm.setup()
     first = next(iter(dm.val_loader()))["image"]
     variables = calibrated_jax_variables(
