@@ -35,13 +35,30 @@ non-zero, printing no result:
    b. one fp32 train step (TF32 off) on the card against the same step on
    the CPU, same weights and draws, batch 2, beside the CPU's step with
    every weight moved by one ulp; c. 30 steps on one batch without
-   augmentation at a constant lr: the loss must fall.
+   augmentation at a constant lr: the loss must fall;
+7. SPM at full width (configs/spm_coco.yaml: darknet19, 512x512 input,
+   128x128 maps, 1 + 2K = 35 channels, 36,615,584 parameters, sigma 1,
+   30 persons, batch 32, bf16; seeded weights and multi-person images made
+   in memory; CLAHE on the device), with the launch counts set to 0 before
+   and read after: no kernel may launch in it.  a. serve:
+   ``load_for_inference`` + ``decode_spm_batch``, batch 1, 1 and 32, and
+   the fp32 forward on the card against the CPU; b. eval: ``validate``
+   (kind spm) on 32 seeded images with a COCO-format file, then the eval
+   step and the decode alone by host clock; c. GT probe: targets of known
+   persons decoded with pred=False give back every root at
+   floor(center/4)*4 and every joint within 1e-3 px of floor(joint/4)*4;
+   d. train: ``Trainer(kind="spm").fit()`` for 10 steps at batch 32 and a
+   resumed epoch, the step's time and split, one fp32 step at 256x256 on
+   the card against the CPU, 30 steps on a fixed batch (the loss must fall
+   below a quarter), and one step with ``augment_geometric``: its time
+   and peak memory.
 
 The last three lines of standard output: the card's name and power limit,
 one JSON object describing each kernel, and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-The config is written inline with the values of configs/sbp_coco.yaml, so
-neither PyYAML nor cv2 is needed.  Imports nothing of JAX.
+The configs are written inline with the values of configs/sbp_coco.yaml
+and configs/spm_coco.yaml, so neither PyYAML nor cv2 is needed.  Imports
+nothing of JAX.
 """
 
 import json
@@ -56,18 +73,24 @@ import torch
 from pytorch_pose_estimation_tpu_torch import optim
 from pytorch_pose_estimation_tpu_torch.data import HostLoader
 from pytorch_pose_estimation_tpu_torch.eval import SBPmAPCOCO
+from pytorch_pose_estimation_tpu_torch.models import count_params
 from pytorch_pose_estimation_tpu_torch.ops import decode as decode_ops
 from pytorch_pose_estimation_tpu_torch.ops import kernels
 from pytorch_pose_estimation_tpu_torch.ops import targets as target_ops
-from pytorch_pose_estimation_tpu_torch.ops.image import (AugmentDraws,
-                                                         normalize_batch,
-                                                         sample_augment)
+from pytorch_pose_estimation_tpu_torch.ops.image import (normalize_batch,
+                                                         sample_augment,
+                                                         sample_photometric)
+from pytorch_pose_estimation_tpu_torch.profile_train_step import spm_people
 from pytorch_pose_estimation_tpu_torch.train import (Trainer, build_model,
+                                                     load_for_inference,
                                                      load_model,
                                                      load_sbp_predictor,
                                                      make_sbp_steps,
+                                                     make_spm_eval_step,
+                                                     make_spm_steps,
                                                      validate)
-from pytorch_pose_estimation_tpu_torch.train.steps import _sbp_targets
+from pytorch_pose_estimation_tpu_torch.train.steps import (_sbp_targets,
+                                                           _spm_targets)
 
 # configs/sbp_coco.yaml, the fields the serving and eval path reads
 CFG = {
@@ -451,16 +474,16 @@ def gt_probe(batch, cfg):
     check(ap > 0.99, f"GT probe: AP@.5 {ap}")
 
 
-def fp32_cross_check():
+def fp32_cross_check(cfg, kind, shape):
     """One fp32 forward (TF32 off) on the card against the CPU, same seeded
-    weights and input."""
-    cfg = dict(CFG, precision="fp32")
+    weights and a seeded uint8 input of ``shape`` (NHWC)."""
+    cfg = dict(cfg, precision="fp32")
     x = normalize_batch(torch.from_numpy(np.random.RandomState(1).randint(
-        0, 256, (1, 256, 192, 3), dtype=np.uint8)))
+        0, 256, shape, dtype=np.uint8)))
     with torch.inference_mode():
-        model = load_model(cfg, None, "cuda")
+        model = load_model(cfg, None, "cuda", kind)
         gpu = model(x.cuda()).cpu()
-        cpu = load_model(cfg, None, "cpu")(x)
+        cpu = load_model(cfg, None, "cpu", kind)(x)
         # the same forward with TF32 on, printed for scale: the limit
         # below must sit under it
         torch.backends.cudnn.allow_tf32 = True
@@ -471,44 +494,46 @@ def fp32_cross_check():
     diff = float((gpu - cpu).abs().max())
     scale = float(cpu.abs().max())
     tf32_diff = float((tf32 - cpu).abs().max())
-    print(f"fp32 forward, card vs CPU: max |logit| {scale:.4g}, max diff "
-          f"{diff:.3g} ({diff / scale:.3g} relative); with TF32 on "
+    print(f"fp32 forward {kind}, card vs CPU: max |logit| {scale:.4g}, max "
+          f"diff {diff:.3g} ({diff / scale:.3g} relative); with TF32 on "
           f"{tf32_diff / scale:.3g} relative")
-    check(diff <= 1e-5 * scale, "fp32 logits differ between card and CPU")
+    check(diff <= 1e-5 * scale,
+          f"fp32 {kind} logits differ between card and CPU")
 
 
 class _MemoryData:
-    """A data module over seeded uint8 crops made in memory (cv2 is not
+    """A data module over seeded samples made in memory (cv2 is not
     assumed on the card host): the port's ``HostLoader`` collates them.
-    The train set is ``n_train`` records over ``n_unique`` distinct crops;
-    the val set is the eval batch of phase 5 with its annotation file."""
+    ``train`` holds one array per batch key over the distinct samples; the
+    train set is ``n_train`` records over them; the val set is one
+    prepared batch (with its annotation file)."""
 
-    def __init__(self, n_unique, n_train, val_batch, rng):
-        self.images = rng.randint(0, 256, (n_unique, 256, 192, 3),
-                                  dtype=np.uint8)
-        self.joints = np.stack([rng.uniform(0, 192, (n_unique, K)),
-                                rng.uniform(0, 256, (n_unique, K))],
-                               -1).astype(np.float32)
-        self.vis = (rng.rand(n_unique, K) > 0.2).astype(np.float32)
+    def __init__(self, train, n_train, val_batch, batch_size):
+        self.train = train
+        self.n_unique = len(next(iter(train.values())))
         self.train_db = list(range(n_train))
         self.val = val_batch
         self.val_db = list(range(len(val_batch["image"])))
+        self.batch_size = batch_size
         self.clahe_prob = 0.5  # host CLAHE; clahe: device turns it off
 
     def _train_sample(self, rec, index, epoch):
-        i = rec % len(self.images)
-        return {"image": self.images[i], "joints": self.joints[i],
-                "joints_vis": self.vis[i]}
+        return {k: v[rec % self.n_unique] for k, v in self.train.items()}
 
     def _val_sample(self, rec, index, epoch):
         return {k: v[rec] for k, v in self.val.items()}
 
     def train_loader(self):
-        return HostLoader(self.train_db, self._train_sample, 256,
+        return HostLoader(self.train_db, self._train_sample, self.batch_size,
                           shuffle=True, seed=0, drop_last=True)
 
     def val_loader(self):
-        return HostLoader(self.val_db, self._val_sample, 256)
+        return HostLoader(self.val_db, self._val_sample, self.batch_size)
+
+    def first(self, n, device=None):
+        """The first n training samples as a batch of tensors."""
+        return {k: torch.from_numpy(v[:n]).to(device or "cpu")
+                for k, v in self.train.items()}
 
 
 def _recording(step, losses):
@@ -521,69 +546,67 @@ def _recording(step, losses):
     return wrapped
 
 
-def phase_train_fit(cfg, dm, save_dir):
-    """6a: fit one epoch, validate, save; resume from ``last`` for a
-    second epoch in a new Trainer.  Returns the launch counts and the
-    resumed trainer."""
+def phase_train_fit(cfg, dm, save_dir, kind, steps):
+    """Fit one epoch, validate, save; resume from ``last`` for a second
+    epoch in a new Trainer.  Returns the kernels' launches over both fits
+    and the resumed trainer."""
     cfg = dict(cfg, save_dir=save_dir)
     for kern in kernels.KERNELS:
         kern.launches = 0
     losses = []
     t0 = time.perf_counter()
-    first = Trainer(cfg, dm)
+    first = Trainer(cfg, dm, kind=kind)
     first.train_step = _recording(first.train_step, losses)
     first.fit()
     ckpts = os.path.join(first.version_dir, "checkpoints")
     names = sorted(os.listdir(ckpts))
-    want = sorted(["best", "last", f"epoch=0-step={TRAIN_STEPS}"])
+    want = sorted(["best", "last", f"epoch=0-step={steps}"])
     check(names == sorted(want + [n + ".meta.json" for n in want]),
-          f"train: checkpoint files {names}")
-    check(first.state.step == TRAIN_STEPS,
-          f"train: {first.state.step} steps in the first epoch")
-    second = Trainer(dict(cfg, epochs=2), dm)
+          f"train {kind}: checkpoint files {names}")
+    check(first.state.step == steps,
+          f"train {kind}: {first.state.step} steps in the first epoch")
+    second = Trainer(dict(cfg, epochs=2), dm, kind=kind)
     second.train_step = _recording(second.train_step, losses)
     second.fit(resume=os.path.join(ckpts, "last"))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {kern.__name__: kern.launches for kern in kernels.KERNELS}
-    check(second.state.step == 2 * TRAIN_STEPS,
-          f"train: the resumed run ended at step {second.state.step}")
+    check(second.state.step == 2 * steps,
+          f"train {kind}: the resumed run ended at step {second.state.step}")
     losses = torch.stack(losses).float().cpu()
-    check(len(losses) == 2 * TRAIN_STEPS and bool(torch.isfinite(
-        losses).all()), f"train: losses {losses.tolist()}")
-    eval_steps = 2  # one val batch per validation, one validation a fit
-    check(launches["sbp_heatmaps_cuda"] == 2 * TRAIN_STEPS + eval_steps,
-          f"train: K1 launched {launches['sbp_heatmaps_cuda']} times for "
-          f"{2 * TRAIN_STEPS} train and {eval_steps} eval steps")
-    check(launches["decode_sbp_cuda"] == eval_steps,
-          f"train: K2 launched {launches['decode_sbp_cuda']} times for "
-          f"{eval_steps} eval steps")
-    print(f"train: fit 1 epoch + resumed fit 1 epoch, {2 * TRAIN_STEPS} "
-          f"steps at batch 256 in {dt:.1f} s host clock (model builds, "
-          f"validation and 6 checkpoint writes included); losses "
+    check(len(losses) == 2 * steps and bool(torch.isfinite(losses).all()),
+          f"train {kind}: losses {losses.tolist()}")
+    print(f"train {kind}: fit 1 epoch + resumed fit 1 epoch, {2 * steps} "
+          f"steps at batch {dm.batch_size} in {dt:.1f} s host clock (model "
+          f"builds, validation and 6 checkpoint writes included); losses "
           f"{float(losses[0]):.4f} ... {float(losses[-1]):.4f}, all finite; "
-          f"step continued {TRAIN_STEPS} -> {second.state.step}; "
-          f"launches {launches}")
+          f"step continued {steps} -> {second.state.step}; launches "
+          f"{launches}")
     return launches, second
 
 
-def phase_train_timing(trainer, dm):
-    """The train step alone at batch 256 on a batch already on the card:
-    steady state by host clock (synchronized), after warm-up; then one
-    step split by CUDA events."""
-    batch = trainer._device_batch(
-        next(iter(dm.train_loader())), ("image", "joints", "joints_vis"))
-    gen = torch.Generator("cuda").manual_seed(1)
-    host_gen = torch.Generator().manual_seed(1)
-    for _ in range(3):
-        trainer.train_step(batch, gen, host_gen)
+def host_ms(fn, n=10, warmup=3):
+    """Milliseconds per call by host clock, synchronized, after warm-up."""
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
-    n = 10
     t0 = time.perf_counter()
     for _ in range(n):
-        trainer.train_step(batch, gen, host_gen)
+        fn()
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / n * 1e3
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def phase_train_timing(trainer, dm):
+    """The train step alone on a batch already on the card: steady state
+    by host clock (synchronized) after warm-up, then one step split by
+    CUDA events, and the peak device memory of these steps."""
+    batch = trainer._device_batch(next(iter(dm.train_loader())),
+                                  trainer.keys)
+    gen = torch.Generator("cuda").manual_seed(1)
+    host_gen = torch.Generator().manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = host_ms(lambda: trainer.train_step(batch, gen, host_gen))
     events = [torch.cuda.Event(enable_timing=True)]
     names = []
 
@@ -599,18 +622,20 @@ def phase_train_timing(trainer, dm):
     torch.cuda.synchronize()
     split = {name: events[i].elapsed_time(events[i + 1])
              for i, name in enumerate(names)}
-    print(f"train step at batch 256: {step_ms:.2f} ms ({256e3 / step_ms:.0f} "
-          f"images/s), host clock over {n} steps after 3 warm-up steps")
-    print("train step split (CUDA events, one step): " + ", ".join(
+    b, kind = dm.batch_size, trainer.kind
+    print(f"train {kind} step at batch {b}: {step_ms:.2f} ms "
+          f"({b * 1e3 / step_ms:.0f} images/s), host clock over 10 steps "
+          f"after 3 warm-up steps")
+    print(f"train {kind} step split (CUDA events, one step): " + ", ".join(
         f"{k} {v:.2f} ms" for k, v in split.items()))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"train: peak device memory {peak:.1f} GiB")
+    print(f"train {kind}: peak device memory {peak:.2f} GiB over these steps")
     return step_ms, split
 
 
 def _draws_to(draws, device):
-    return AugmentDraws(**{k: v.to(device) if torch.is_tensor(v) else v
-                           for k, v in vars(draws).items()})
+    return type(draws)(**{k: v.to(device) if torch.is_tensor(v) else v
+                          for k, v in vars(draws).items()})
 
 
 def _update_gap(a, b) -> float:
@@ -622,9 +647,9 @@ def _update_gap(a, b) -> float:
     return float((ua - ub).norm() / ub.norm())
 
 
-def phase_train_vs_cpu(cfg, dm):
-    """6b: one fp32 train step (TF32 off) on the card and on the CPU:
-    same seeded weights, same batch, same draws (drawn once on the CPU),
+def phase_train_vs_cpu(cfg, kind, batch, make_step, draws):
+    """One fp32 train step (TF32 off) on the card and on the CPU: same
+    seeded weights, same batch, same draws (drawn once on the CPU),
     nesterov SGD with weight decay at a constant lr 1e-3.  For scale, the
     CPU's step again with every weight moved by about one fp32 ulp: at this
     init the update is ill-conditioned (the loss pushes every logit down,
@@ -633,14 +658,9 @@ def phase_train_vs_cpu(cfg, dm):
     differs from the CPU's everywhere, not in one ulp once."""
     cfg = dict(cfg, precision="fp32")
     runs = {}
-    gen = torch.Generator().manual_seed(2)
-    draws = sample_augment(gen, 2, (256, 192), clahe_prob=0.5)
-    batch = {"image": torch.from_numpy(dm.images[:2]),
-             "joints": torch.from_numpy(dm.joints[:2]),
-             "joints_vis": torch.from_numpy(dm.vis[:2])}
     for run, device in (("card", "cuda"), ("cpu", "cpu"),
                         ("cpu, weights +-1 ulp", "cpu")):
-        model = build_model(cfg).train()
+        model = build_model(cfg, kind).train()
         if run.endswith("ulp"):
             noise = torch.Generator().manual_seed(5)
             with torch.no_grad():
@@ -652,15 +672,14 @@ def phase_train_vs_cpu(cfg, dm):
         opt = optim.get_optimizer("sgd", list(model.parameters()), lr=1e-3,
                                   momentum=0.9, weight_decay=5e-3,
                                   nesterov=True)
-        step, _ = make_sbp_steps(model, opt, [256, 192], (64, 48), K, 2.0,
-                                 0.25)
-        loss = step({k: v.to(device) for k, v in batch.items()},
-                    draws=_draws_to(draws, device))
+        loss = make_step(model, opt)(
+            {k: v.to(device) for k, v in batch.items()},
+            draws=_draws_to(draws, device))
         runs[run] = (float(loss), ({k: v.detach().cpu() for k, v in
                                     model.state_dict().items()}, start))
     (gl, gsd), (cl, csd) = runs["card"], runs["cpu"]
     check(all(torch.equal(gsd[1][k], csd[1][k]) for k in gsd[1]),
-          "train vs CPU: the seeded weights differ")
+          f"train {kind} vs CPU: the seeded weights differ")
     loss_rel = abs(gl - cl) / abs(cl)
     gap = _update_gap(gsd, csd)
     ulp_gap = _update_gap(runs["cpu, weights +-1 ulp"][1], csd)
@@ -668,38 +687,308 @@ def phase_train_vs_cpu(cfg, dm):
                       / csd[0][k].abs().max())
                 for k in csd[0] if k.endswith(("running_mean",
                                                "running_var")))
-    print(f"train vs CPU, fp32 (TF32 off), batch 2: loss {gl:.6f} card, "
-          f"{cl:.6f} CPU ({loss_rel:.2e} relative); the parameters' update "
-          f"{gap:.2e} of its norm apart (the CPU's own step with the weights "
-          f"moved by one ulp: {ulp_gap:.2e}); BN running statistics "
-          f"{stats:.2e} of the largest value")
-    # limits: measured 3.9e-7, 2.35e-2 (one-ulp yardstick 3.3e-3) and
+    shape = tuple(batch["image"].shape)
+    print(f"train {kind} vs CPU, fp32 (TF32 off), images {shape}: loss "
+          f"{gl:.6f} card, {cl:.6f} CPU ({loss_rel:.2e} relative); the "
+          f"parameters' update {gap:.2e} of its norm apart (the CPU's own "
+          f"step with the weights moved by one ulp: {ulp_gap:.2e}); BN "
+          f"running statistics {stats:.2e} of the largest value")
+    # SBP limits: measured 3.9e-7, 2.35e-2 (one-ulp yardstick 3.3e-3) and
     # 6.0e-5 on an H100; a plain-momentum update would be ~90% apart
     check(loss_rel <= 1e-5 and gap <= 0.1 and stats <= 3e-4,
-          "train vs CPU: the card's step disagrees with the CPU's")
+          f"train {kind} vs CPU: the card's step disagrees with the CPU's")
 
 
-def phase_train_learns(cfg, dm):
-    """6c: 30 steps on one fixed batch of 32, augmentation off (identity
-    crop: scale 1, ratio w/h), constant lr 1e-3; the loss must fall."""
-    model = build_model(cfg).cuda().train()
+def phase_train_learns(kind, batch, make_step):
+    """30 steps on one fixed batch of 32 without augmentation at a
+    constant lr 1e-3; the loss must fall below a quarter."""
+    cfg = SPM_CFG if kind == "spm" else TRAIN_CFG
+    model = build_model(cfg, kind).cuda().train()
     opt = optim.get_optimizer("sgd", list(model.parameters()), lr=1e-3,
                               momentum=0.9, weight_decay=5e-3, nesterov=True)
-    augment = {"rotate_prob": 0.0, "jitter_prob": 0.0,
-               "scale_range": (1.0, 1.0), "ratio_range": (0.75, 0.75)}
-    step, _ = make_sbp_steps(model, opt, [256, 192], (64, 48), K, 2.0, 0.25,
-                             augment=augment)
-    batch = {"image": torch.from_numpy(dm.images[:32]).cuda(),
-             "joints": torch.from_numpy(dm.joints[:32]).cuda(),
-             "joints_vis": torch.from_numpy(dm.vis[:32]).cuda()}
+    step = make_step(model, opt)
     gen = torch.Generator("cuda").manual_seed(3)
     host_gen = torch.Generator().manual_seed(3)
     losses = torch.stack([step(batch, gen, host_gen) for _ in range(30)])
     first, last = float(losses[0]), float(losses[-1])
-    print(f"train learns: fixed batch of 32, 30 steps: loss {first:.4f} -> "
-          f"{last:.4f}")
+    print(f"train {kind} learns: fixed batch of {len(batch['image'])}, 30 "
+          f"steps: loss {first:.4f} -> {last:.4f}")
     check(bool(torch.isfinite(losses).all()) and last < 0.25 * first,
-          "train learns: the loss did not fall below a quarter")
+          f"train {kind} learns: the loss did not fall below a quarter")
+
+
+def phase_sbp_train(path, batch, rng, tmp):
+    """Phase 6: SBP training at full width (see the module docstring)."""
+    train_cfg = dict(TRAIN_CFG, val_path=path)
+    dm = _MemoryData(
+        {"image": rng.randint(0, 256, (512, 256, 192, 3), dtype=np.uint8),
+         "joints": np.stack([rng.uniform(0, 192, (512, K)),
+                             rng.uniform(0, 256, (512, K))],
+                            -1).astype(np.float32),
+         "joints_vis": (rng.rand(512, K) > 0.2).astype(np.float32)},
+        TRAIN_STEPS * 256, batch, 256)
+    launches, trainer = phase_train_fit(
+        train_cfg, dm, os.path.join(tmp, "saved"), "sbp", TRAIN_STEPS)
+    eval_steps = 2  # one val batch per validation, one validation a fit
+    check(launches["sbp_heatmaps_cuda"] == 2 * TRAIN_STEPS + eval_steps,
+          f"train: K1 launched {launches['sbp_heatmaps_cuda']} times for "
+          f"{2 * TRAIN_STEPS} train and {eval_steps} eval steps")
+    check(launches["decode_sbp_cuda"] == eval_steps,
+          f"train: K2 launched {launches['decode_sbp_cuda']} times for "
+          f"{eval_steps} eval steps")
+    phase_train_timing(trainer, dm)
+    del trainer
+    phase_train_vs_cpu(
+        train_cfg, "sbp", dm.first(2),
+        lambda m, o: make_sbp_steps(m, o, [256, 192], (64, 48), K, 2.0,
+                                    0.25)[0],
+        sample_augment(torch.Generator().manual_seed(2), 2, (256, 192),
+                       clahe_prob=0.5))
+    # augmentation off: identity crop (scale 1, ratio w/h), no rotation
+    # and no jitter
+    augment = {"rotate_prob": 0.0, "jitter_prob": 0.0,
+               "scale_range": (1.0, 1.0), "ratio_range": (0.75, 0.75)}
+    phase_train_learns(
+        "sbp", dm.first(32, "cuda"),
+        lambda m, o: make_sbp_steps(m, o, [256, 192], (64, 48), K, 2.0, 0.25,
+                                    augment=augment)[0])
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 7: SPM
+# --------------------------------------------------------------------------
+
+# configs/spm_coco.yaml, the fields the SPM path reads; validation and
+# checkpoints every epoch; CLAHE on the device (the config's host CLAHE
+# needs cv2)
+SPM_CFG = {
+    "model": "single-stage-pose-machines", "dataset_name": "coco-keypoints",
+    "input_size": 512, "output_size": 128, "num_keypoints": K, "sigma": 1,
+    "conf_threshold": 0.5, "max_persons": 30, "batch_size": 32,
+    "precision": "bf16", "seed": 0, "epochs": 1, "save_freq": 1,
+    "clahe": "device", "optimizer": "sgd",
+    "optimizer_options": {"lr": 1e-3, "momentum": 0.9, "weight_decay": 5e-3,
+                          "nesterov": True},
+    "scheduler": "yolo_lr",
+    "scheduler_options": {"burn_in": 1565, "steps": [50080],
+                          "scales": [0.1]},
+    "trainer_options": {"check_val_every_n_epoch": 1,
+                        "num_sanity_val_steps": 0}}
+S_IN, S_OUT, S_B, S_P = 512, 128, 32, 30
+SPM_STEPS = 10  # per epoch, at batch 32
+SPM_PARAMS = 36_615_584  # SBP's 36,606,368 - 512 * 17 + 512 * 35
+
+
+def _spm_decode(logits, pred=True, threshold=0.5):
+    return decode_ops.decode_spm_batch(logits, S_IN, 1.0, threshold, pred,
+                                       S_P)
+
+
+def _spm_people(rng, n, size=None):
+    return spm_people(rng, n, size or S_IN, S_P)
+
+
+def _spm_eval_set(tmp, n, rng):
+    """n seeded images at the input size (image frame == input frame), their
+    persons, and a COCO-format annotation file of them."""
+    joints, centers = _spm_people(rng, n)
+    images, anns = [], []
+    for i in range(n):
+        images.append({"id": i + 1, "file_name": f"{i + 1:012d}.jpg",
+                       "width": S_IN, "height": S_IN})
+        for p in np.flatnonzero(centers[i, :, 0].any(-1)):
+            present = joints[i, p].any(-1)
+            kps = []
+            for (x, y), v in zip(joints[i, p], present):
+                kps += [float(x), float(y), 2 if v else 0]
+            cx, cy = centers[i, p, 0]
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": 1, "iscrowd": 0, "area": 240.0 ** 2,
+                         "bbox": [float(cx) - 120, float(cy) - 120, 240.0,
+                                  240.0],
+                         "keypoints": kps,
+                         "num_keypoints": int(present.sum())})
+    path = os.path.join(tmp, "person_keypoints_spm_val.json")
+    with open(path, "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": 1, "name": "person"}]}, f)
+    batch = {
+        "image": rng.randint(0, 256, (n, S_IN, S_IN, 3), dtype=np.uint8),
+        "joints": joints, "centers": centers,
+        "image_id": np.arange(1, n + 1, dtype=np.int64),
+        "category_id": np.ones(n, np.int64),
+        "image_size": np.full((n, 2), S_IN, np.int64),
+    }
+    return path, batch
+
+
+def phase_spm_serve(cfg):
+    """7a: three requests through ``load_for_inference`` + the decode, and
+    the fp32 forward on the card against the CPU."""
+    model, forward = load_for_inference(cfg, None, "spm")
+    check(count_params(model) == SPM_PARAMS,
+          f"serve spm: {count_params(model)} parameters")
+    rng = np.random.RandomState(3)
+    for n in (1, 1, S_B):
+        images = rng.randint(0, 256, (n, S_IN, S_IN, 3), dtype=np.uint8)
+        t0 = time.perf_counter()
+        roots, joints = _spm_decode(forward(images))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(roots.shape == (n, S_P, 3) and joints.shape == (n, S_P, K, 3)
+              and roots.is_cuda, f"serve spm: roots {tuple(roots.shape)}, "
+              f"joints {tuple(joints.shape)} on {roots.device}")
+        check(bool(torch.isfinite(roots).all() & torch.isfinite(joints).all()),
+              "serve spm: non-finite output")
+        print(f"serve spm: batch {n} at {S_IN}x{S_IN}: roots "
+              f"{tuple(roots.shape)}, keypoints {tuple(joints.shape)}, "
+              f"finite, {int((roots[..., 2] >= 0).sum())} persons found, "
+              f"{dt * 1e3:.1f} ms host clock (first call includes set-up)")
+    fp32_cross_check(SPM_CFG, "spm", (1, S_IN, S_IN, 3))
+
+
+def phase_spm_eval(cfg, batch):
+    """7b: ``validate(kind="spm")`` on the seeded set, then the eval step
+    and the decode alone at B=32 by host clock."""
+    model = load_model(cfg, None, kind="spm")
+    val_loss, val_map = validate(cfg, _Batches([batch]), model,
+                                 verbose=False, kind="spm")
+    check(np.isfinite(val_loss) and 0.0 <= val_map <= 1.0,
+          f"eval spm: val_loss {val_loss}, AP {val_map}")
+    print(f"eval spm: validate on {len(batch['image'])} images: val_loss "
+          f"{val_loss:.6f}, AP@.5 {val_map:.4f} (random weights)")
+    eval_step = make_spm_eval_step(model, S_IN, S_OUT, K, 1.0, 0.5, S_P)
+    dev = {k: torch.from_numpy(batch[k]).cuda()
+           for k in ("image", "joints", "centers")}
+    eval_ms = host_ms(lambda: eval_step(dev), n=5)
+    with torch.inference_mode():
+        logits = model(normalize_batch(dev["image"]))
+    decode_ms = host_ms(lambda: _spm_decode(logits))
+    print(f"eval spm at batch {S_B}: eval step (normalize, targets, "
+          f"forward, loss, decode) {eval_ms:.2f} ms, decode_spm_batch alone "
+          f"{decode_ms:.2f} ms; host clock, synchronized, after warm-up")
+
+
+def spm_gt_probe():
+    """7c: targets of known persons, 6 an image (fewer on a small map)
+    with their roots 20 map px apart, decoded with pred=False: every root
+    at floor(center/4)*4 with conf 1, every present joint within 1e-3 px of
+    floor(joint/4)*4 (each placed 6-9.5 map px from its root), every absent
+    one a zero row."""
+    rng = np.random.RandomState(6)
+    joints = np.zeros((S_B, S_P, K, 2), np.float32)
+    centers = np.zeros((S_B, S_P, 1, 2), np.float32)
+    side = np.arange(14, S_OUT - 13, 20)
+    cells = np.stack(np.meshgrid(side, side), -1).reshape(-1, 2)
+    m = min(6, len(cells))
+    for i in range(S_B):
+        c = cells[rng.choice(len(cells), m, replace=False)].astype(np.float32)
+        centers[i, :m, 0] = c * 4 + rng.uniform(0, 4, (m, 2))
+        angle = rng.uniform(0, 2 * np.pi, (m, K))
+        radius = rng.uniform(6, 9.5, (m, K))
+        j = c[:, None] + radius[..., None] * np.stack([np.cos(angle),
+                                                       np.sin(angle)], -1)
+        joints[i, :m] = j * 4
+        joints[i, :m, :3] = 0.0  # absent
+    target = _spm_targets(torch.from_numpy(joints).cuda(),
+                          torch.from_numpy(centers).cuda(), S_OUT / S_IN,
+                          S_OUT, K, 1.0)
+    roots, kps = (t.cpu().numpy() for t in _spm_decode(target, pred=False))
+    want_c = np.floor(centers[:, :m, 0] / 4) * 4
+    want_j = np.floor(joints[:, :m] / 4) * 4
+    err = 0.0
+    for i in range(S_B):
+        found = np.flatnonzero(roots[i, :, 2] >= 0)
+        check(len(found) == m and (roots[i, found, 2] == 1.0).all(),
+              f"GT probe spm: image {i}: roots {roots[i, found].tolist()}")
+        for p in range(m):
+            slot = found[(roots[i, found, :2] == want_c[i, p]).all(-1)]
+            check(len(slot) == 1, f"GT probe spm: image {i}: the root at "
+                  f"{want_c[i, p].tolist()} was not found exactly")
+            got = kps[i, slot[0]]
+            check((got[:3] == 0).all(), "GT probe spm: an absent joint came "
+                  "back")
+            check((got[3:, 2] == 1.0).all(), "GT probe spm: a joint was lost")
+            err = max(err, float(np.abs(got[3:, :2] - want_j[i, p, 3:]).max()))
+    check(err <= 1e-3, f"GT probe spm: joints {err} px off")
+    print(f"GT probe spm: targets -> decode_spm_batch(pred=False) on "
+          f"{S_B} images: all {m * S_B} roots exact, {14 * m * S_B} present "
+          f"joints within {err:.3g} px, {3 * m * S_B} absent ones zero")
+
+
+def phase_spm_geometric(dm):
+    """One train step with ``augment_geometric`` at 512x512: its time by
+    host clock and peak memory, at batch 32 or, if that does not fit, the
+    largest power-of-two batch that does (printed)."""
+    b = S_B
+    while True:
+        model = build_model(SPM_CFG, "spm").cuda().train()
+        opt = optim.get_optimizer("sgd", list(model.parameters()), lr=1e-3,
+                                  momentum=0.9, weight_decay=5e-3,
+                                  nesterov=True)
+        step, _ = make_spm_steps(model, opt, S_IN, S_OUT, K, 1.0, 0.5,
+                                 augment={"geometric": True,
+                                          "clahe_prob": 0.5})
+        batch = dm.first(b, "cuda")
+        gen = torch.Generator("cuda").manual_seed(4)
+        host_gen = torch.Generator().manual_seed(4)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            ms = host_ms(lambda: step(batch, gen, host_gen), n=3, warmup=1)
+            break
+        except torch.cuda.OutOfMemoryError:
+            total = torch.cuda.get_device_properties(0).total_memory
+            print(f"train spm geometric: batch {b} does not fit in "
+                  f"{total / 2 ** 30:.0f} GiB")
+            del model, opt, step, batch
+            torch.cuda.empty_cache()
+            check(b > 1, "train spm geometric: not even batch 1 fits")
+            b //= 2
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train spm geometric step at batch {b}, {S_IN}x{S_IN}: {ms:.2f} "
+          f"ms host clock over 3 steps after 1 warm-up; peak device memory "
+          f"{peak:.2f} GiB")
+
+
+def phase_spm(path, batch, rng, tmp):
+    """Phase 7: SPM at full width.  No kernel may launch in it."""
+    cfg = dict(SPM_CFG, val_path=path)
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    phase_spm_serve(cfg)
+    phase_spm_eval(cfg, batch)
+    spm_gt_probe()
+    joints, centers = _spm_people(rng, 64)
+    dm = _MemoryData(
+        {"image": rng.randint(0, 256, (64, S_IN, S_IN, 3), dtype=np.uint8),
+         "joints": joints, "centers": centers},
+        SPM_STEPS * S_B, batch, S_B)
+    _, trainer = phase_train_fit(cfg, dm, os.path.join(tmp, "saved_spm"),
+                                 "spm", SPM_STEPS)
+    phase_train_timing(trainer, dm)
+    del trainer
+    half = S_IN // 2  # the CPU's step at 512x512 would take minutes
+    joints, centers = _spm_people(rng, 2, size=half)
+    phase_train_vs_cpu(
+        cfg, "spm",
+        {"image": torch.from_numpy(rng.randint(0, 256, (2, half, half, 3),
+                                               dtype=np.uint8)),
+         "joints": torch.from_numpy(joints),
+         "centers": torch.from_numpy(centers)},
+        lambda m, o: make_spm_steps(m, o, half, half // 4, K, 1.0, 0.5)[0],
+        sample_photometric(torch.Generator().manual_seed(2), 2,
+                           clahe_prob=0.5))
+    phase_train_learns(
+        "spm", dm.first(S_B, "cuda"),
+        lambda m, o: make_spm_steps(m, o, S_IN, S_OUT, K, 1.0, 0.5,
+                                    augment={"jitter_prob": 0.0})[0])
+    phase_spm_geometric(dm)
+    launches = {kern.__name__: kern.launches for kern in kernels.KERNELS}
+    print(f"spm launches (phase 7): {launches}")
+    check(all(n == 0 for n in launches.values()),
+          f"a kernel launched on the SPM path: {launches}")
 
 
 def main():
@@ -726,18 +1015,13 @@ def main():
             check(all(n > 0 for n in launches.values()),
                   f"a kernel of the main path never launched: {launches}")
             gt_probe(batch, cfg)
-            fp32_cross_check()
-            train_cfg = dict(TRAIN_CFG, val_path=path)
-            dm = _MemoryData(512, TRAIN_STEPS * 256, batch, rng)
-            train_launches, trainer = phase_train_fit(
-                train_cfg, dm, os.path.join(tmp, "saved"))
+            fp32_cross_check(CFG, "sbp", (1, 256, 192, 3))
+            train_launches = phase_sbp_train(path, batch, rng, tmp)
             for name, n in train_launches.items():
                 launches[name] += n
             print(f"main path launches (serve, eval, train): {launches}")
-            phase_train_timing(trainer, dm)
-            del trainer
-            phase_train_vs_cpu(train_cfg, dm)
-            phase_train_learns(train_cfg, dm)
+            spm_path, spm_batch = _spm_eval_set(tmp, S_B, rng)
+            phase_spm(spm_path, spm_batch, rng, tmp)
         finally:
             os.chdir(cwd)
 

@@ -6,13 +6,15 @@ Plain tensor code is PyTorch; the JAX package's two Pallas kernels are
 CUDA C++ kernels under ``csrc/``, built with nvcc at first use
 (``ops/kernels.py``).
 
-Ported so far, SBP training, serving and eval: ``models`` (Darknet19 +
-SBP), ``ops`` (augmentation, targets, decode, normalize), ``losses``,
-``optim`` (optax-chain optimizers, LR schedules), ``train`` (train and eval
-steps, state, checkpoints, ``Trainer``, predictor, validate), ``data``
-(COCO index, train and val loaders), ``eval`` (OKS AP), and the
-``train_sbp`` and ``test_sbp`` CLI modules.  cv2, PyYAML and tensorboardX
-are imported only where an image, a config file or a log is written.
+Ported so far: SBP and SPM training, serving and eval.  ``models``
+(Darknet19, SBP, SPM), ``ops`` (augmentation, SBP and SPM targets and
+decode, normalize), ``losses``, ``optim`` (optax-chain optimizers, LR
+schedules), ``train`` (train and eval steps, state, checkpoints,
+``Trainer``, predictor, ``load_for_inference``, validate), ``data`` (COCO
+index, SBP and SPM loaders), ``eval`` (OKS AP), ``vis``, and the CLI
+modules ``train_sbp``, ``test_sbp``, ``inference_sbp``, ``train_spm``,
+``test_spm`` and ``inference_spm``.  cv2, PyYAML and tensorboardX are
+imported only where an image, a config file or a log is read or written.
 """
 
 __version__ = "0.1.0"

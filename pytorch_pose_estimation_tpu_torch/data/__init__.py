@@ -1,17 +1,20 @@
-"""Host data layer: COCO annotation index, the SBP instance DB and its
-threaded train and val loaders.  Augmentation and targets run on the
-device (``ops/``)."""
+"""Host data layer: COCO annotation index, the SBP instance DB, the SPM
+image DB and their threaded train and val loaders.  Augmentation and
+targets run on the device (``ops/``)."""
 
 from .coco import COCO_KPT_SIGMAS, CocoAnnotations
 from .pipeline import HostLoader, collate, pad_batch
 from .sbp_dataset import SBPCOCODataModule, load_sbp_instance_db
+from .spm_dataset import SPMCOCODataModule, load_spm_image_db
 
 __all__ = [
     "COCO_KPT_SIGMAS",
     "CocoAnnotations",
     "HostLoader",
     "SBPCOCODataModule",
+    "SPMCOCODataModule",
     "collate",
     "load_sbp_instance_db",
+    "load_spm_image_db",
     "pad_batch",
 ]

@@ -1,4 +1,4 @@
 from .cocoeval import KeypointEvaluator
-from .metrics import SBPmAPCOCO
+from .metrics import SBPmAPCOCO, SPMmAPCOCO
 
-__all__ = ["KeypointEvaluator", "SBPmAPCOCO"]
+__all__ = ["KeypointEvaluator", "SBPmAPCOCO", "SPMmAPCOCO"]

@@ -1,12 +1,15 @@
-"""COCO keypoint mAP for SBP with the reference's accumulate/reset/result
-surface (reference: utils/sbp_utils.py:121-189).
+"""COCO keypoint mAP with the reference's accumulate/reset/result surface
+(reference: utils/sbp_utils.py:121-189, utils/spm_utils.py:282-351).
 
-Counterpart of pytorch_pose_estimation_tpu/eval/metrics.py::SBPmAPCOCO.
+Counterpart of pytorch_pose_estimation_tpu/eval/metrics.py (SBPmAPCOCO,
+SPMmAPCOCO).
 The batch decodes in one call (kernel K2 on the card) and only the
 results-list packing runs on the host.  Joints below the confidence
 threshold become (0, 0, 0) with conf 0, visible joints get visibility flag
 1, score = mean joint confidence, and coordinates map input crop -> bbox
-frame -> original image.  The PIS and SPM metrics come with their slices.
+frame -> original image.  SPM: one result per decoded person, keypoints
+scaled from the square input to the image; a (0, 0) keypoint is packed as
+(0, 0, 0) with conf 0.  The PIS metric comes with its slice.
 """
 
 from __future__ import annotations
@@ -18,8 +21,19 @@ import numpy as np
 import torch
 
 from ..data.coco import CocoAnnotations
-from ..ops.decode import decode_sbp_fast
+from ..ops.decode import decode_sbp_fast, decode_spm_batch
 from .cocoeval import KeypointEvaluator
+
+
+def _numpy(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _evaluate(coco: CocoAnnotations, result_list: list, verbose: bool
+              ) -> float:
+    """OKS AP@.5 of ``result_list`` against ``coco``."""
+    coco_dt = coco.load_results(result_list)
+    return float(KeypointEvaluator(coco, coco_dt).run(verbose)[1])
 
 
 class SBPmAPCOCO:
@@ -60,9 +74,7 @@ class SBPmAPCOCO:
     def update_state_decoded(self, target: dict, joints) -> None:
         """Same, with joints [B, K, 3] already decoded (input-size
         coordinates), as the eval step returns them."""
-        if torch.is_tensor(joints):
-            joints = joints.detach().cpu().numpy()
-        joints = np.asarray(joints)
+        joints = _numpy(joints)
         bbox = np.asarray(target["bbox"], np.float64)
         img_ids = np.asarray(target["image_id"])
         cat_ids = np.asarray(target["category_id"])
@@ -79,7 +91,66 @@ class SBPmAPCOCO:
             json.dump(self.result_list, f, indent=4)
         if not self.result_list:
             return 0.0
-        coco_dt = self.coco.load_results(self.result_list)
-        evaluator = KeypointEvaluator(self.coco, coco_dt)
-        stats = evaluator.run(verbose)
-        return float(stats[1])
+        return _evaluate(self.coco, self.result_list, verbose)
+
+
+class SPMmAPCOCO:
+    """Bottom-up SPM keypoint AP@OKS=.50: one result per decoded person,
+    whole-image coordinate rescale."""
+
+    def __init__(self, json_path: str, input_size: int, sigma: float,
+                 conf_threshold: float, max_persons: int = 30):
+        self.coco = CocoAnnotations(json_path)
+        self.input_size = int(input_size)
+        self.sigma = sigma
+        self.conf_threshold = float(conf_threshold)
+        self.max_persons = max_persons
+        self.result_list = []
+
+    def reset_states(self):
+        self.result_list = []
+
+    def update_state(self, target: dict, y_pred: torch.Tensor) -> None:
+        """target: dict with 'image_size' [B,2] (w,h), 'image_id',
+        'category_id'; y_pred: NCHW logits [B, 1+2K, S, S]."""
+        decoded = decode_spm_batch(y_pred, self.input_size, self.sigma,
+                                   self.conf_threshold, True,
+                                   self.max_persons)
+        self.update_state_decoded(target, decoded)
+
+    def update_state_decoded(self, target: dict, decoded) -> None:
+        """decoded: (roots [B,M,3], keypoints [B,M,K,3]) in input pixels,
+        as the eval step returns them."""
+        roots_b, kps_b = (_numpy(x) for x in decoded)
+        image_sizes = np.asarray(target["image_size"], np.float64)
+        img_ids = np.asarray(target["image_id"])
+        cat_ids = np.asarray(target["category_id"])
+        for idx in range(roots_b.shape[0]):
+            keep = roots_b[idx, :, 2] >= 0
+            kps = kps_b[idx][keep].astype(np.float64).copy()
+            kps[..., 0] *= image_sizes[idx][0] / self.input_size
+            kps[..., 1] *= image_sizes[idx][1] / self.input_size
+            for person in kps:
+                tmp_joints, tmp_confs = [], []
+                for (px, py, conf) in person:
+                    if px == 0.0 and py == 0.0:
+                        tmp_joints.extend([0, 0, 0])
+                        tmp_confs.append(0.0)
+                        continue
+                    tmp_joints.extend([float(px), float(py), 1])
+                    tmp_confs.append(float(conf))
+                self.result_list.append({
+                    "image_id": int(img_ids[idx]),
+                    "category_id": int(cat_ids[idx]),
+                    "keypoints": tmp_joints,
+                    "score": float(sum(tmp_confs) / person.shape[0]),
+                })
+
+    def result(self, verbose: bool = True) -> float:
+        """AP@.5; results.json is written to the cwd only when there are
+        results (the SBP metric writes it always)."""
+        if not self.result_list:
+            return 0.0
+        with open(os.path.join(os.getcwd(), "results.json"), "w") as f:
+            json.dump(self.result_list, f, indent=4)
+        return _evaluate(self.coco, self.result_list, verbose)

@@ -2,7 +2,8 @@ from .convert import from_jax_variables, load_state_dict_file
 from .darknet import Darknet19
 from .initialize import lecun_normal_
 from .layers import ConvBn, ConvBnAct, ConvBnRelu, DeconvBnRelu
-from .sbp import SBP
+from .sbp import SBP, PoseNet
+from .spm import SPM
 from .summary import count_params, print_summary
 
 __all__ = [
@@ -11,7 +12,9 @@ __all__ = [
     "ConvBnRelu",
     "Darknet19",
     "DeconvBnRelu",
+    "PoseNet",
     "SBP",
+    "SPM",
     "count_params",
     "from_jax_variables",
     "lecun_normal_",

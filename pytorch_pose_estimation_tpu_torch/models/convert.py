@@ -2,16 +2,20 @@
 
 ``from_jax_variables`` is the inverse of the JAX package's
 ``models/torch_import.py::import_torch_state_dict``: it maps flax
-``{'params', 'batch_stats'}`` trees (numpy leaves) of an SBP to a state_dict
-with the reference's keys.  Conv kernels [kh, kw, I, O] and flax
+``{'params', 'batch_stats'}`` trees (numpy leaves) of an SBP or an SPM to a
+state_dict with the reference's keys; the two differ only in the head's key
+(``sbp_head.0.weight`` or ``spm_head.0.weight``, both flax's
+``params['head']['kernel']``).  Conv kernels [kh, kw, I, O] and flax
 transpose-kernel deconv kernels [kh, kw, O, I] both become torch layout by
 the permutation (3, 2, 0, 1), the inverse of torch_import's (2, 3, 1, 0).
 BN scale/bias/mean/var map to weight/bias/running_mean/running_var.
 
 ``load_state_dict_file`` reads what ``import_torch_checkpoint`` reads: a
 bare state_dict, or a Lightning checkpoint whose ``state_dict`` keys carry
-a ``model.`` prefix.  Orbax checkpoints of the JAX package load through
-``from_jax_variables`` once a reader for them is ported.
+a ``model.`` prefix; and the model part of the port's own training
+checkpoints (``train/checkpoint.py``).  Orbax checkpoints of the JAX
+package load through ``from_jax_variables`` once a reader for them is
+ported.
 """
 
 from __future__ import annotations
@@ -44,9 +48,12 @@ def _bn(variables: Mapping, path, prefix: str, out: dict) -> None:
     out[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
 
-def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """{'params': ..., 'batch_stats': ...} of the JAX SBP -> the port's SBP
-    state_dict."""
+def from_jax_variables(variables: Mapping, kind: str = "sbp"
+                       ) -> Dict[str, torch.Tensor]:
+    """{'params': ..., 'batch_stats': ...} of the JAX SBP or SPM (``kind``
+    'sbp' or 'spm') -> the port's state_dict of that model."""
+    if kind not in ("sbp", "spm"):
+        raise ValueError(f"kind must be 'sbp' or 'spm', got {kind!r}")
     params = variables["params"]
     out: Dict[str, torch.Tensor] = {}
     for s, (name, table) in enumerate(zip(STAGE_NAMES, STAGES)):
@@ -64,14 +71,17 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
         name = f"deconv_{i}"
         out[f"{name}.0.weight"] = _kernel(params[name]["deconv"]["kernel"])
         _bn(variables, (name,), f"{name}.1", out)
-    out["sbp_head.0.weight"] = _kernel(params["head"]["kernel"])
+    out[f"{kind}_head.0.weight"] = _kernel(params["head"]["kernel"])
     return out
 
 
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
-    """Read a bare state_dict or a Lightning checkpoint (``model.``
-    prefixes stripped) from a torch file."""
+    """Read a bare state_dict, a Lightning checkpoint (``model.``
+    prefixes stripped) or the model of a training checkpoint from a torch
+    file."""
     blob = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(blob, dict) and "model" in blob and "optimizer" in blob:
+        return blob["model"]
     state_dict = blob.get("state_dict", blob) if isinstance(blob, dict) \
         else blob
     return {(k[len("model."):] if k.startswith("model.") else k): v

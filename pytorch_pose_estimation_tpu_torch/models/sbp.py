@@ -45,9 +45,15 @@ def _restoring_buffers(module: nn.Module):
                 b.copy_(s)
 
 
-class SBP(nn.Module):
-    def __init__(self, num_keypoints: int = 17,
-                 dtype: torch.dtype = torch.float32, remat: bool = False):
+class PoseNet(nn.Module):
+    """Darknet19 features -> 3 deconvs -> a 1x1 head (no bias) of
+    ``out_channels`` logit maps, named ``head_name`` (the reference's
+    state_dict key); SBP and SPM differ only in the head."""
+
+    head_name = ""
+
+    def __init__(self, out_channels: int, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.remat = remat
@@ -55,11 +61,11 @@ class SBP(nn.Module):
         self.deconv_1 = DeconvBnRelu(OUT_CHANNELS, DECONV_CHANNELS, dtype)
         self.deconv_2 = DeconvBnRelu(DECONV_CHANNELS, DECONV_CHANNELS, dtype)
         self.deconv_3 = DeconvBnRelu(DECONV_CHANNELS, DECONV_CHANNELS, dtype)
-        self.sbp_head = nn.Sequential(
-            nn.Conv2d(DECONV_CHANNELS, num_keypoints, 1, bias=False))
+        setattr(self, self.head_name, nn.Sequential(
+            nn.Conv2d(DECONV_CHANNELS, out_channels, 1, bias=False)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [B, 3, H, W] fp32 -> logits [B, K, H/4, W/4] fp32."""
+        """x: [B, 3, H, W] -> logits [B, out_channels, H/4, W/4] fp32."""
         backbone = self.backbone_features_module
         if self.remat and self.training and torch.is_grad_enabled():
             x = checkpoint(backbone, x, use_reentrant=False,
@@ -68,7 +74,15 @@ class SBP(nn.Module):
         else:
             x = backbone(x)
         x = self.deconv_3(self.deconv_2(self.deconv_1(x)))
-        head = self.sbp_head[0]
+        head = getattr(self, self.head_name)[0]
         x = F.conv2d(x.to(self.dtype), head.weight.to(self.dtype))
         # logits stay fp32 so loss and decode match the reference numerics
         return x.float()
+
+
+class SBP(PoseNet):
+    head_name = "sbp_head"
+
+    def __init__(self, num_keypoints: int = 17,
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
+        super().__init__(num_keypoints, dtype, remat)

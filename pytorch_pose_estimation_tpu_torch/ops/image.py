@@ -28,6 +28,9 @@ The cores keep the JAX semantics:
   saturation, hue) in ``itertools.permutations`` order, a per-example
   apply mask, the contrast mean taken in fp32;
 * CLAHE on the luma channel, per example, with 256-bin tile histograms.
+
+The SPM train step's default augmentation is photometric only (CLAHE,
+then color jitter: ``sample_photometric`` and ``spm_photometric_core``).
 """
 
 from __future__ import annotations
@@ -46,10 +49,15 @@ JITTER_ORDERS = tuple(itertools.permutations(range(4)))
 def normalize_batch(images_u8: torch.Tensor) -> torch.Tensor:
     """Val-time preprocessing, Normalize(0, 1) == /255 (reference:
     dataset/sbp_coco_dataset.py:234-237): uint8 [B, H, W, 3] ->
-    contiguous fp32 [B, 3, H, W] on the same device."""
+    contiguous fp32 [B, 3, H, W] on the same device.
+
+    The divisor is a 0-dim tensor on the images' device: divided by a
+    Python scalar, a CUDA tensor is multiplied by the scalar's reciprocal,
+    1 ulp off the quotient for some pixel values, and CLAHE's luma bins
+    turn that ulp into a whole bin."""
     x = images_u8.permute(0, 3, 1, 2).to(
         torch.float32, memory_format=torch.contiguous_format)
-    return x / 255.0
+    return x / torch.full((), 255.0, device=x.device)
 
 
 # --------------------------------------------------------------------------
@@ -373,6 +381,56 @@ def _sample_crop(gen: torch.Generator, b: int, h: int, w: int,
     return x0, y0, cw, ch
 
 
+@dataclass
+class PhotometricDraws:
+    """The random parameters of the SPM train step's photometric
+    augmentation (``spm_photometric_core``); fields as in
+    ``AugmentDraws``."""
+    brightness: torch.Tensor
+    contrast: torch.Tensor
+    saturation: torch.Tensor
+    hue: torch.Tensor
+    jitter_order: int
+    jitter: Optional[torch.Tensor]
+    clahe: Optional[torch.Tensor] = None
+    clahe_clip: Optional[torch.Tensor] = None
+
+
+def _host(gen: torch.Generator,
+          host_gen: Optional[torch.Generator]) -> torch.Generator:
+    if host_gen is None:
+        if gen.device.type != "cpu":
+            raise ValueError("the jitter order is drawn on the host: pass a "
+                             "CPU host_gen beside a device generator")
+        host_gen = gen
+    return host_gen
+
+
+def sample_photometric(gen: torch.Generator, batch: int,
+                       jitter_params: Sequence[float] = (0.5, 0.2, 0.5, 0.1),
+                       clahe_prob: float = 0.0, jitter_prob: float = 0.5,
+                       host_gen: Optional[torch.Generator] = None
+                       ) -> PhotometricDraws:
+    """CLAHE with probability ``clahe_prob`` and a clip limit uniform in
+    [1, 4]; jitter factors uniform in 1 +- (b, c, s) and hue +-h, one of
+    the 24 orders (from ``host_gen``, see ``sample_augment``), applied with
+    ``jitter_prob``."""
+    host_gen = _host(gen, host_gen)
+    b = int(batch)
+    clahe = clahe_clip = None
+    if clahe_prob > 0:
+        clahe = _uniform(gen, b, 0.0, 1.0) < clahe_prob
+        clahe_clip = _uniform(gen, b, 1.0, 4.0)
+    fb, fc, fs, fh = jitter_params
+    factors = (_uniform(gen, b, 1 - fb, 1 + fb),
+               _uniform(gen, b, 1 - fc, 1 + fc),
+               _uniform(gen, b, 1 - fs, 1 + fs), _uniform(gen, b, -fh, fh))
+    jitter = (_uniform(gen, b, 0.0, 1.0) < jitter_prob
+              if jitter_prob < 1.0 else None)
+    order = int(torch.randint(len(JITTER_ORDERS), (1,), generator=host_gen))
+    return PhotometricDraws(*factors, order, jitter, clahe, clahe_clip)
+
+
 def sample_augment(gen: torch.Generator, batch: int, out_hw: Sequence[int],
                    rotate_limit: float = 40.0,
                    scale_range: Sequence[float] = (0.4, 1.0),
@@ -387,15 +445,9 @@ def sample_augment(gen: torch.Generator, batch: int, out_hw: Sequence[int],
     CPU generator; defaults to ``gen`` when that is on the CPU).  The
     distributions are the JAX package's: G = n_angle_groups(B, angle_groups)
     angles uniform in +-rotate_limit degrees, each sample rotated with
-    probability ``rotate_prob``; CLAHE with probability ``clahe_prob`` and a
-    clip limit uniform in [1, 4]; jitter factors uniform in 1 +- (b, c, s)
-    and hue +-h, one of the 24 orders, applied with ``jitter_prob``; crops
-    as ``_sample_crop``."""
-    if host_gen is None:
-        if gen.device.type != "cpu":
-            raise ValueError("the jitter order is drawn on the host: pass a "
-                             "CPU host_gen beside a device generator")
-        host_gen = gen
+    probability ``rotate_prob``; CLAHE and jitter as
+    ``sample_photometric``; crops as ``_sample_crop``."""
+    host_gen = _host(gen, host_gen)
     b = int(batch)
     h, w = int(out_hw[0]), int(out_hw[1])
     g = n_angle_groups(b, angle_groups)
@@ -404,19 +456,27 @@ def sample_augment(gen: torch.Generator, batch: int, out_hw: Sequence[int],
         rotate = torch.ones(b, dtype=torch.bool, device=gen.device)
     else:
         rotate = _uniform(gen, b, 0.0, 1.0) < rotate_prob
-    clahe = clahe_clip = None
-    if clahe_prob > 0:
-        clahe = _uniform(gen, b, 0.0, 1.0) < clahe_prob
-        clahe_clip = _uniform(gen, b, 1.0, 4.0)
-    fb, fc, fs, fh = jitter_params
-    factors = (_uniform(gen, b, 1 - fb, 1 + fb), _uniform(gen, b, 1 - fc, 1 + fc),
-               _uniform(gen, b, 1 - fs, 1 + fs), _uniform(gen, b, -fh, fh))
-    jitter = (_uniform(gen, b, 0.0, 1.0) < jitter_prob
-              if jitter_prob < 1.0 else None)
-    order = int(torch.randint(len(JITTER_ORDERS), (1,), generator=host_gen))
+    p = sample_photometric(gen, b, jitter_params, clahe_prob, jitter_prob,
+                           host_gen)
     x0, y0, cw, ch = _sample_crop(gen, b, h, w, scale_range, ratio_range)
-    return AugmentDraws(angles, rotate, *factors, order, jitter,
-                        x0, y0, cw, ch, clahe, clahe_clip)
+    return AugmentDraws(angles, rotate, p.brightness, p.contrast,
+                        p.saturation, p.hue, p.jitter_order, p.jitter,
+                        x0, y0, cw, ch, p.clahe, p.clahe_clip)
+
+
+def spm_photometric_core(images_u8: torch.Tensor, draws: PhotometricDraws,
+                         out_dtype: torch.dtype = torch.float32
+                         ) -> torch.Tensor:
+    """The SPM train step's augmentation (the JAX package's
+    train/steps.py:166-177): uint8 [B, H, W, 3] -> /255 in fp32 -> CLAHE
+    where drawn (fp32) -> cast to ``out_dtype`` -> color jitter.  No crop
+    and no final clip: [B, 3, H, W] in ``out_dtype``."""
+    imgs = normalize_batch(images_u8)
+    if draws.clahe is not None:
+        imgs = clahe_luma_batch(imgs, draws.clahe, draws.clahe_clip)
+    return color_jitter_batch(imgs.to(out_dtype), draws.brightness,
+                              draws.contrast, draws.saturation, draws.hue,
+                              draws.jitter_order, draws.jitter)
 
 
 def augment_batch_core(images_u8: torch.Tensor, joints: torch.Tensor,

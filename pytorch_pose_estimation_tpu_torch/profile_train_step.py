@@ -1,15 +1,16 @@
-"""Profile the SBP train step on one GPU at full width (darknet19 SBP,
-256x192 input, bf16, sgd nesterov, device CLAHE), seeded weights and
-seeded uint8 crops already on the card:
+"""Profile a train step on one GPU at full width, seeded weights and
+seeded uint8 images already on the card: SBP (darknet19, 256x192 input,
+batch 256 by default) or SPM (512x512 input, 30 persons, batch 32 by
+default); bf16, sgd nesterov, device CLAHE:
 
     python -m pytorch_pose_estimation_tpu_torch.profile_train_step \\
-        [--batch 256] [--steps 5]
+        [--kind sbp|spm] [--batch N] [--steps 5]
 
 Prints the card's name and power limit, the step time by host clock
 (synchronized, after warm-up), each part's device time by CUDA events
 (augment, targets, forward_backward, optimizer; the mean over the steps),
-the augmentation's own parts (rotation, CLAHE, color jitter, crop) timed
-alone the same way, then a ``torch.profiler`` trace of the same steps: the device's busy share
+the augmentation's and the targets' own parts timed alone the same way,
+then a ``torch.profiler`` trace of the same steps: the device's busy share
 of the window and the kernels with the most device time, and the same
 time grouped into kinds (convolution, matmul, elementwise, ...).
 """
@@ -26,7 +27,9 @@ import torch
 
 from . import optim
 from .ops import image
-from .train import build_model, make_sbp_steps
+from .ops import targets as target_ops
+from .train import build_model, make_sbp_steps, make_spm_steps
+from .train.steps import _spm_targets
 
 _PARTS = ("augment", "targets", "forward_backward", "optimizer")
 # kernel-name fragments -> kind, first match wins
@@ -87,9 +90,87 @@ def _augment_parts(batch, gen, host_gen) -> dict:
             gen, b, (256, 192), clahe_prob=0.5, host_gen=host_gen))}
 
 
+def _spm_parts(batch, gen, host_gen) -> dict:
+    """The SPM step's augmentation and targets, part by part."""
+    b = batch["image"].shape[0]
+    draws = image.sample_photometric(gen, b, clahe_prob=0.5,
+                                     host_gen=host_gen)
+    imgs = image.normalize_batch(batch["image"])
+    c = torch.floor(batch["centers"] * 0.25)
+    j = torch.floor(batch["joints"] * 0.25)
+    masks = target_ops.spm_masks(c, 128, 1.0)
+    return {
+        "normalize": _device_ms(lambda: image.normalize_batch(
+            batch["image"])),
+        "clahe": _device_ms(lambda: image.clahe_luma_batch(
+            imgs, draws.clahe, draws.clahe_clip)),
+        "color jitter (bf16)": _device_ms(lambda: image.color_jitter_batch(
+            imgs.to(torch.bfloat16), draws.brightness, draws.contrast,
+            draws.saturation, draws.hue, draws.jitter_order, draws.jitter)),
+        "draws": _device_ms(lambda: image.sample_photometric(
+            gen, b, clahe_prob=0.5, host_gen=host_gen)),
+        "targets: root heatmap": _device_ms(
+            lambda: target_ops.spm_heatmaps(c, 128, 1, 1.0)),
+        "targets: masks": _device_ms(
+            lambda: target_ops.spm_masks(c, 128, 1.0)),
+        "targets: displacements": _device_ms(
+            lambda: target_ops.spm_displacements(j, masks, 128, 17)),
+        "targets: all": _device_ms(lambda: _spm_targets(
+            batch["joints"], batch["centers"], 0.25, 128, 17, 1.0))}
+
+
+def spm_people(rng, n: int, size: int = 512, max_persons: int = 30):
+    """Seeded persons for n images of ``size`` x ``size`` (input px),
+    padded to ``max_persons`` with (0, 0): 1-7 an image, each a center and
+    17 joints within 120 px of it at 512 (scaled with ``size``), a fifth of
+    the joints absent.  Returns joints [n, P, 17, 2], centers [n, P, 1, 2]
+    fp32."""
+    joints = np.zeros((n, max_persons, 17, 2), np.float32)
+    centers = np.zeros((n, max_persons, 1, 2), np.float32)
+    r = 120 * size / 512
+    for i in range(n):
+        m = rng.randint(1, 8)
+        c = rng.uniform(r / 2, size - r / 2, (m, 2))
+        centers[i, :m, 0] = c
+        j = np.clip(c[:, None] + rng.uniform(-r, r, (m, 17, 2)), 1, size - 1)
+        j[rng.rand(m, 17) < 0.2] = 0.0
+        joints[i, :m] = j
+    return joints, centers
+
+
+def _setup(kind: str, b: int, rng):
+    """(step, batch on the card, parts timer) at full width."""
+    cfg = {"num_keypoints": 17, "precision": "bf16", "seed": 0}
+    model = build_model(cfg, kind).cuda().train()
+    opt = optim.get_optimizer("sgd", list(model.parameters()), lr=1e-3,
+                              momentum=0.9, weight_decay=5e-3, nesterov=True)
+    if kind == "spm":
+        step, _ = make_spm_steps(model, opt, 512, 128, 17, 1.0, 0.5,
+                                 augment={"clahe_prob": 0.5})
+        joints, centers = spm_people(rng, b)
+        batch = {"image": rng.randint(0, 256, (b, 512, 512, 3),
+                                      dtype=np.uint8),
+                 "joints": joints, "centers": centers}
+        parts = _spm_parts
+    else:
+        step, _ = make_sbp_steps(model, opt, [256, 192], (64, 48), 17, 2.0,
+                                 0.25, augment={"clahe_prob": 0.5})
+        batch = {
+            "image": rng.randint(0, 256, (b, 256, 192, 3), dtype=np.uint8),
+            "joints": np.stack([rng.uniform(0, 192, (b, 17)),
+                                rng.uniform(0, 256, (b, 17))],
+                               -1).astype(np.float32),
+            "joints_vis": (rng.rand(b, 17) > 0.2).astype(np.float32)}
+        parts = _augment_parts
+    return step, {k: torch.from_numpy(v).cuda()
+                  for k, v in batch.items()}, parts
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
-    parser.add_argument("--batch", type=int, default=256)
+    parser.add_argument("--kind", choices=("sbp", "spm"), default="sbp")
+    parser.add_argument("--batch", type=int, default=None,
+                        help="default 256 for SBP, 32 for SPM")
     parser.add_argument("--steps", type=int, default=5)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -99,22 +180,9 @@ def main(argv=None):
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0])
 
-    cfg = {"num_keypoints": 17, "precision": "bf16", "seed": 0}
-    model = build_model(cfg).cuda().train()
-    opt = optim.get_optimizer("sgd", list(model.parameters()), lr=1e-3,
-                              momentum=0.9, weight_decay=5e-3, nesterov=True)
-    step, _ = make_sbp_steps(model, opt, [256, 192], (64, 48), 17, 2.0, 0.25,
-                             augment={"clahe_prob": 0.5})
-    rng = np.random.RandomState(0)
-    b = args.batch
-    batch = {
-        "image": torch.from_numpy(rng.randint(0, 256, (b, 256, 192, 3),
-                                              dtype=np.uint8)).cuda(),
-        "joints": torch.from_numpy(np.stack(
-            [rng.uniform(0, 192, (b, 17)), rng.uniform(0, 256, (b, 17))],
-            -1).astype(np.float32)).cuda(),
-        "joints_vis": torch.from_numpy(
-            (rng.rand(b, 17) > 0.2).astype(np.float32)).cuda()}
+    b = args.batch or (32 if args.kind == "spm" else 256)
+    step, batch, parts_alone = _setup(args.kind, b,
+                                      np.random.RandomState(0))
     gen = torch.Generator("cuda").manual_seed(0)
     host_gen = torch.Generator().manual_seed(0)
     for _ in range(3):
@@ -126,7 +194,7 @@ def main(argv=None):
         step(batch, gen, host_gen)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / args.steps * 1e3
-    print(f"train step at batch {b}: {step_ms:.2f} ms host clock "
+    print(f"{args.kind} train step at batch {b}: {step_ms:.2f} ms host clock "
           f"({b * 1e3 / step_ms:.0f} images/s), mean of {args.steps}")
 
     parts = defaultdict(float)
@@ -145,9 +213,9 @@ def main(argv=None):
             parts[name] += events[i].elapsed_time(events[i + 1])
     print("parts (CUDA events, mean): " + ", ".join(
         f"{k} {v / args.steps:.2f} ms" for k, v in parts.items()))
-    print("augmentation parts alone (CUDA events): " + ", ".join(
+    print("parts alone (CUDA events): " + ", ".join(
         f"{k} {v:.2f} ms" for k, v in
-        _augment_parts(batch, gen, host_gen).items()))
+        parts_alone(batch, gen, host_gen).items()))
 
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]

@@ -3,10 +3,11 @@ from .checkpoint import (CheckpointManager, extract_backbone,
                          restore_checkpoint, restore_checkpoint_flexible,
                          save_checkpoint)
 from .state import TrainState
-from .steps import make_sbp_eval_step, make_sbp_steps
+from .steps import (make_sbp_eval_step, make_sbp_steps, make_spm_eval_step,
+                    make_spm_steps)
 from .trainer import (Trainer, apply_precision_config, build_metric,
-                      build_model, load_model, load_sbp_predictor,
-                      resolve_device, validate)
+                      build_model, load_for_inference, load_model,
+                      load_sbp_predictor, resolve_device, validate)
 
 __all__ = [
     "CheckpointManager",
@@ -16,11 +17,14 @@ __all__ = [
     "build_metric",
     "build_model",
     "extract_backbone",
+    "load_for_inference",
     "load_model",
     "load_pretrained",
     "load_sbp_predictor",
     "make_sbp_eval_step",
     "make_sbp_steps",
+    "make_spm_eval_step",
+    "make_spm_steps",
     "next_version_dir",
     "resolve_device",
     "restore_checkpoint",

@@ -21,7 +21,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
@@ -123,19 +123,10 @@ def restore_checkpoint_flexible(path: str, state: TrainState) -> dict:
     return {}
 
 
-def _model_state(path: str) -> Dict[str, torch.Tensor]:
-    """The model state_dict of a checkpoint, a bare or partial state_dict
-    or a Lightning checkpoint."""
-    blob = torch.load(path, map_location="cpu", weights_only=False)
-    if isinstance(blob, dict) and "model" in blob and "optimizer" in blob:
-        return blob["model"]
-    return load_state_dict_file(path)
-
-
 def extract_backbone(ckpt_path: str, out_path: str) -> str:
     """Save only the backbone's entries of a checkpoint's model state (the
     reference's 'pretrained_weights.pt' warm-start artifact)."""
-    sub = {k: v for k, v in _model_state(ckpt_path).items()
+    sub = {k: v for k, v in load_state_dict_file(ckpt_path).items()
            if k.startswith(_BACKBONE)}
     out_path = os.path.abspath(out_path)
     _save_atomic(sub, out_path)
@@ -147,6 +138,6 @@ def load_pretrained(state: TrainState, pretrained_path: str) -> None:
     the model where the keys match; other keys of either side are left
     alone (strict=False warm start, reference: train_sbp.py:44-46)."""
     own = state.model.state_dict()
-    src = _model_state(pretrained_path)
+    src = load_state_dict_file(pretrained_path)
     own.update({k: v for k, v in src.items() if k in own})
     state.model.load_state_dict(own)

@@ -1,12 +1,16 @@
-"""SBP train and eval steps.
+"""SBP and SPM train and eval steps.
 
-Counterpart of pytorch_pose_estimation_tpu/train/steps.py (``_sbp_targets``
-and ``make_sbp_steps``).  Everything after the uint8 batch lands on the
-device runs on the device.  The train step: augmentation, Gaussian targets
-(kernel K1, no gradient), train-mode forward, loss, backward and the
-optimizer update, returning the loss without a host sync.  The eval step:
-normalization, targets (K1), forward, per-sample loss and decode (kernel
-K2), so only K*3 floats per sample come back.
+Counterpart of pytorch_pose_estimation_tpu/train/steps.py.  Everything
+after the uint8 batch lands on the device runs on the device.  The SBP
+train step: augmentation, Gaussian targets (kernel K1, no gradient),
+train-mode forward, loss, backward and the optimizer update, returning the
+loss without a host sync.  The SBP eval step: normalization, targets (K1),
+forward, per-sample loss and decode (kernel K2), so only K*3 floats per
+sample come back.
+
+SPM's steps run no kernel: photometric augmentation (or, opt-in, SBP's
+geometric one), the SPM targets, forward, loss and the peak-NMS decode are
+torch ops.
 """
 
 from __future__ import annotations
@@ -16,10 +20,12 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..losses import sbp_loss, sbp_loss_per_sample
-from ..ops.decode import decode_sbp_fast
-from ..ops.image import augment_batch_core, normalize_batch, sample_augment
-from ..ops.targets import sbp_heatmaps_batch
+from ..losses import (sbp_loss, sbp_loss_per_sample, spm_loss,
+                      spm_loss_per_sample)
+from ..ops.decode import decode_sbp_fast, decode_spm_batch
+from ..ops.image import (augment_batch_core, normalize_batch, sample_augment,
+                         sample_photometric, spm_photometric_core)
+from ..ops.targets import sbp_heatmaps_batch, spm_target
 from ..optim import ChainOptimizer
 
 
@@ -123,4 +129,134 @@ def make_sbp_steps(model: nn.Module, optimizer: ChainOptimizer,
     eval_step = make_sbp_eval_step(model, input_size, output_size,
                                    num_keypoints, sigma,
                                    decode_conf_threshold)
+    return train_step, eval_step
+
+
+# --------------------------------------------------------------------------
+# SPM
+# --------------------------------------------------------------------------
+
+def _spm_targets(joints: torch.Tensor, centers: torch.Tensor, ratio: float,
+                 output_size: int, num_keypoints: int, sigma: float
+                 ) -> torch.Tensor:
+    """joints [B,P,K,2] and centers [B,P,1,2] in input px -> targets
+    [B, 1+2K, S, S]; the points are floored at the output resolution, as
+    the reference casts them to int64 (dataset/spm_coco_dataset.py:73)."""
+    j = torch.floor(joints.to(torch.float32) * ratio)
+    c = torch.floor(centers.to(torch.float32) * ratio)
+    return spm_target(c, j, output_size, num_keypoints, sigma)
+
+
+def make_spm_eval_step(model: nn.Module, input_size: int, output_size: int,
+                       num_keypoints: int, sigma: float,
+                       decode_conf_threshold: float, max_persons: int = 30
+                       ) -> Callable:
+    """Returns ``eval_step(batch) -> (per-sample losses [B], (roots
+    [B, M, 3], keypoints [B, M, K, 3]) in input pixels)``.  ``batch``:
+    image uint8 [B, S, S, 3], joints [B, P, K, 2], centers [B, P, 1, 2]
+    on the model's device.  The model must be in eval mode."""
+    ratio = int(output_size) / int(input_size)
+
+    @torch.inference_mode()
+    def eval_step(batch: dict):
+        images = normalize_batch(batch["image"])
+        target = _spm_targets(batch["joints"], batch["centers"], ratio,
+                              output_size, num_keypoints, sigma)
+        logits = model(images)
+        losses = spm_loss_per_sample(logits, target)
+        decoded = decode_spm_batch(logits, int(input_size), float(sigma),
+                                   float(decode_conf_threshold), True,
+                                   int(max_persons))
+        return losses, decoded
+
+    return eval_step
+
+
+def make_spm_steps(model: nn.Module, optimizer: ChainOptimizer,
+                   input_size: int, output_size: int, num_keypoints: int,
+                   sigma: float, decode_conf_threshold: float,
+                   augment: Optional[dict] = None, max_persons: int = 30):
+    """Returns (train_step, eval_step) with the SBP steps' signatures;
+    ``batch`` holds image uint8 [B,S,S,3], joints [B,P,K,2] and centers
+    [B,P,1,2] (input px, (0, 0) for an absent point).
+
+    By default the train step's augmentation is photometric, as the
+    reference's SPM transform list (rotate and crop commented out,
+    dataset/spm_coco_dataset.py:228-241): ``sample_photometric`` (from
+    ``augment``: color_jitter (0.5, 0.2, 0.5, 0.1), jitter_prob 0.5,
+    clahe_prob 0) and ``spm_photometric_core`` in the model's dtype.  The
+    draws are ``PhotometricDraws``.
+
+    ``augment={'geometric': True}``: SBP's rotate + crop + jitter
+    (``sample_augment``, ``augment_batch_core``; draws ``AugmentDraws``)
+    with rotate_limit 30, scale_range (0.6, 1), ratio_range (0.75, 1.33)
+    unless given, rotate_prob and jitter_prob 0.5 and 16 angle groups
+    whatever ``augment`` says, and fp32 images, as the JAX step calls
+    ``augment_batch``.  Every person's joints and center ride one
+    per-sample transform; points that leave the frame become (0, 0)."""
+    ratio = int(output_size) / int(input_size)
+    s = int(input_size)
+    augment = augment or {}
+    jitter = tuple(augment.get("color_jitter", (0.5, 0.2, 0.5, 0.1)))
+    clahe_prob = float(augment.get("clahe_prob", 0.0))
+    geometric = bool(augment.get("geometric", False))
+    if geometric:
+        options = dict(
+            rotate_limit=augment.get("rotate_limit", 30.0),
+            scale_range=tuple(augment.get("scale_range", (0.6, 1.0))),
+            ratio_range=tuple(augment.get("ratio_range", (0.75, 1.33))),
+            jitter_params=jitter, clahe_prob=clahe_prob)
+    else:
+        options = dict(jitter_params=jitter, clahe_prob=clahe_prob,
+                       jitter_prob=float(augment.get("jitter_prob", 0.5)))
+    dtype = getattr(model, "dtype", torch.float32)
+
+    def augment_geometric(batch: dict, draws):
+        b = batch["image"].shape[0]
+        joints = batch["joints"].to(torch.float32)
+        p, k = joints.shape[1], joints.shape[2]
+        pts = torch.cat([joints.reshape(b, p * k, 2),
+                         batch["centers"].to(torch.float32).reshape(b, p, 2)],
+                        1)
+        valid = (~((pts[..., 0] <= 0) & (pts[..., 1] <= 0))).to(torch.float32)
+        images, pts, valid = augment_batch_core(batch["image"], pts, valid,
+                                                draws, (s, s))
+        pts = torch.where(valid[..., None] >= 1, pts,
+                          torch.zeros((), device=pts.device))
+        return (images, pts[:, :p * k].reshape(b, p, k, 2),
+                pts[:, p * k:].reshape(b, p, 1, 2))
+
+    def train_step(batch: dict, gen: Optional[torch.Generator] = None,
+                   host_gen: Optional[torch.Generator] = None,
+                   draws=None, marker: Optional[Callable] = None):
+        mark = marker or (lambda name: None)
+        model.train()
+        with torch.no_grad():
+            b = batch["image"].shape[0]
+            if geometric:
+                if draws is None:
+                    draws = sample_augment(gen, b, (s, s), host_gen=host_gen,
+                                           **options)
+                images, joints, centers = augment_geometric(batch, draws)
+            else:
+                if draws is None:
+                    draws = sample_photometric(gen, b, host_gen=host_gen,
+                                               **options)
+                images = spm_photometric_core(batch["image"], draws, dtype)
+                joints, centers = batch["joints"], batch["centers"]
+            mark("augment")
+            target = _spm_targets(joints, centers, ratio, output_size,
+                                  num_keypoints, sigma)
+            mark("targets")
+        loss = spm_loss(model(images), target)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        mark("forward_backward")
+        optimizer.step()
+        mark("optimizer")
+        return loss.detach()
+
+    eval_step = make_spm_eval_step(model, input_size, output_size,
+                                   num_keypoints, sigma,
+                                   decode_conf_threshold, max_persons)
     return train_step, eval_step

@@ -1,9 +1,10 @@
-"""SBP training, serving and validation.
+"""SBP and SPM training, serving and validation.
 
 Counterpart of pytorch_pose_estimation_tpu/train/trainer.py:
 ``apply_precision_config``, ``build_model``, ``build_metric``,
-``load_sbp_predictor``, ``validate`` and the ``Trainer`` for SBP, which
-reproduces the reference training contract (train_sbp.py:55-79):
+``load_for_inference``, ``load_sbp_predictor``, ``validate`` and the
+``Trainer`` for SBP and SPM (``kind``), which reproduces the reference
+training contract (train_sbp.py:55-79):
 
 * validation every ``trainer_options.check_val_every_n_epoch`` epochs,
 * TensorBoard logs (train_loss / val_loss / val_mAP / lr-step) when
@@ -13,9 +14,10 @@ reproduces the reference training contract (train_sbp.py:55-79):
 * early stopping on val_loss with patience 30 validation rounds,
 * an optional partial warm start from ``model_pretrained``.
 
-Each train step runs augmentation, targets (kernel K1), forward, backward
-and the update on the device; the host loader prefetches the next batches
-meanwhile, and the batch is copied from pinned memory without a sync.
+Each train step runs augmentation, targets (kernel K1 for SBP), forward,
+backward and the update on the device; the host loader prefetches the next
+batches meanwhile, and the batch is copied from pinned memory without a
+sync.
 
 Entry points run on the card by default (``device="cuda"``) and raise when
 CUDA is not available; they never carry on quietly on the CPU.  Pass
@@ -34,8 +36,8 @@ import torch
 from torch import nn
 
 from ..config import make_model_name
-from ..eval.metrics import SBPmAPCOCO
-from ..models import SBP, lecun_normal_, load_state_dict_file
+from ..eval.metrics import SBPmAPCOCO, SPMmAPCOCO
+from ..models import SBP, SPM, PoseNet, lecun_normal_, load_state_dict_file
 from ..models.summary import print_summary
 from ..ops.decode import decode_sbp_fast
 from ..ops.image import normalize_batch
@@ -43,9 +45,20 @@ from ..optim import build_optimizer_from_cfg
 from .checkpoint import (CheckpointManager, load_pretrained,
                          next_version_dir, restore_checkpoint)
 from .state import TrainState
-from .steps import make_sbp_eval_step, make_sbp_steps
+from .steps import (make_sbp_eval_step, make_sbp_steps, make_spm_eval_step,
+                    make_spm_steps)
 
-_EVAL_KEYS = ("image", "joints", "joints_vis")
+# the batch keys the train and eval steps read, per model kind
+_KEYS = {"sbp": ("image", "joints", "joints_vis"),
+         "spm": ("image", "joints", "centers")}
+
+
+def _check_kind(kind: str) -> str:
+    if kind == "pis":
+        raise ValueError("kind 'pis' is not ported yet")
+    if kind not in _KEYS:
+        raise ValueError(f"kind must be 'sbp' or 'spm', got {kind!r}")
+    return kind
 
 
 def resolve_device(device) -> torch.device:
@@ -72,31 +85,65 @@ def apply_precision_config(cfg: dict) -> str:
     return precision
 
 
-def build_model(cfg: dict) -> SBP:
-    """SBP at the configured precision, with ``cfg['remat']``, initialized
-    like the JAX package (lecun_normal) from a generator seeded with
-    ``cfg['seed']`` (0)."""
+def build_model(cfg: dict, kind: str = "sbp") -> PoseNet:
+    """SBP or SPM (``kind``) at the configured precision, with
+    ``cfg['remat']``, initialized like the JAX package (lecun_normal) from a
+    generator seeded with ``cfg['seed']`` (0)."""
+    cls = SPM if _check_kind(kind) == "spm" else SBP
     precision = apply_precision_config(cfg)
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
-    model = SBP(num_keypoints=int(cfg["num_keypoints"]), dtype=dtype,
+    model = cls(num_keypoints=int(cfg["num_keypoints"]), dtype=dtype,
                 remat=bool(cfg.get("remat", False)))
     gen = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
     return lecun_normal_(model, gen)
 
 
-def load_model(cfg: dict, ckpt: Optional[str], device="cuda") -> SBP:
-    """``build_model``, weights from ``ckpt`` (a torch state_dict or
-    Lightning checkpoint) when given, moved to ``device``, in eval mode."""
+def load_model(cfg: dict, ckpt: Optional[str], device="cuda",
+               kind: str = "sbp") -> PoseNet:
+    """``build_model``, weights from ``ckpt`` (a torch state_dict, a
+    Lightning checkpoint or a training checkpoint) when given, moved to
+    ``device``, in eval mode."""
     device = resolve_device(device)
-    model = build_model(cfg)
+    model = build_model(cfg, kind)
     if ckpt:
         model.load_state_dict(load_state_dict_file(ckpt))
     return model.to(device).eval()
 
 
-def build_metric(cfg: dict) -> SBPmAPCOCO:
+def build_metric(cfg: dict, kind: str = "sbp"):
+    if _check_kind(kind) == "spm":
+        return SPMmAPCOCO(cfg["val_path"], cfg["input_size"], cfg["sigma"],
+                          cfg["conf_threshold"], cfg.get("max_persons", 30))
     return SBPmAPCOCO(cfg["val_path"], cfg["input_size"],
                       cfg["conf_threshold"])
+
+
+def _images(images, device: torch.device) -> torch.Tensor:
+    """uint8 [B, H, W, 3] (numpy or tensor) -> normalized fp32 NCHW on
+    ``device``."""
+    images = torch.as_tensor(images, device=device)
+    if images.dtype != torch.uint8 or images.dim() != 4 or \
+            images.shape[-1] != 3:
+        raise ValueError("images must be uint8 [B, H, W, 3], got "
+                         f"{images.dtype} {tuple(images.shape)}")
+    return normalize_batch(images)
+
+
+def load_for_inference(cfg: dict, ckpt: Optional[str], kind: str = "sbp",
+                       device="cuda"
+                       ) -> Tuple[PoseNet, Callable[..., torch.Tensor]]:
+    """``load_model`` and ``forward(images_u8_nhwc) -> logits`` [B, C, h, w]
+    fp32 on ``device`` (the training pipeline's Normalize(0, 1), then the
+    eval-mode model).  Returns (model, forward), as the JAX package returns
+    (variables, forward)."""
+    device = resolve_device(device)
+    model = load_model(cfg, ckpt, device, kind)
+
+    @torch.inference_mode()
+    def forward(images) -> torch.Tensor:
+        return model(_images(images, device))
+
+    return model, forward
 
 
 def load_sbp_predictor(cfg: dict, ckpt: Optional[str], device="cuda"
@@ -108,44 +155,47 @@ def load_sbp_predictor(cfg: dict, ckpt: Optional[str], device="cuda"
     ``device``) in input-size pixel coordinates with the reference's
     sentinel scaling.  ``images`` may be a numpy array or a tensor.
     """
-    device = resolve_device(device)
-    model = load_model(cfg, ckpt, device)
+    _, forward = load_for_inference(cfg, ckpt, "sbp", device)
     input_w = int(cfg["input_size"][1])
     conf = float(cfg["conf_threshold"])
 
     @torch.inference_mode()
     def predict(images) -> torch.Tensor:
-        images = torch.as_tensor(images, device=device)
-        if images.dtype != torch.uint8 or images.dim() != 4 or \
-                images.shape[-1] != 3:
-            raise ValueError("images must be uint8 [B, H, W, 3], got "
-                             f"{images.dtype} {tuple(images.shape)}")
-        logits = model(normalize_batch(images))
-        return decode_sbp_fast(logits, input_w, conf, True)
+        return decode_sbp_fast(forward(images), input_w, conf, True)
 
     return predict
 
 
-def validate(cfg: dict, data_module, model: nn.Module, device="cuda",
-             verbose: bool = True) -> Tuple[float, float]:
-    """SBP validation (``Trainer.validate``): eval step over the data
-    module's val loader, mean per-sample loss and OKS AP@.5 of the decoded
-    joints.  Returns (val_loss, val_mAP)."""
-    device = resolve_device(device)
-    model = model.to(device).eval()
-    eval_step = make_sbp_eval_step(
+def _eval_step(cfg: dict, model: nn.Module, kind: str) -> Callable:
+    if kind == "spm":
+        return make_spm_eval_step(
+            model, cfg["input_size"], cfg["output_size"],
+            int(cfg["num_keypoints"]), float(cfg["sigma"]),
+            float(cfg["conf_threshold"]), int(cfg.get("max_persons", 30)))
+    return make_sbp_eval_step(
         model, cfg["input_size"], tuple(cfg["output_size"]),
         int(cfg["num_keypoints"]), float(cfg["sigma"]),
         float(cfg["conf_threshold"]))
-    metric = build_metric(cfg)
+
+
+def validate(cfg: dict, data_module, model: nn.Module, device="cuda",
+             verbose: bool = True, kind: str = "sbp") -> Tuple[float, float]:
+    """Validation (``Trainer.validate``): eval step over the data module's
+    val loader, mean per-sample loss and OKS AP@.5 of the decoded joints.
+    Returns (val_loss, val_mAP)."""
+    device = resolve_device(device)
+    keys = _KEYS[_check_kind(kind)]
+    model = model.to(device).eval()
+    eval_step = _eval_step(cfg, model, kind)
+    metric = build_metric(cfg, kind)
     loss_sum, n_total = 0.0, 0
     for batch in data_module.val_loader():
         dev_batch = {k: torch.as_tensor(np.asarray(batch[k]), device=device)
-                     for k in _EVAL_KEYS}
-        per_sample, joints = eval_step(dev_batch)
+                     for k in keys}
+        per_sample, decoded = eval_step(dev_batch)
         loss_sum += float(per_sample.sum())
         n_total += len(batch["image"])
-        metric.update_state_decoded(batch, joints)
+        metric.update_state_decoded(batch, decoded)
     val_loss = loss_sum / max(n_total, 1)
     val_map = metric.result(verbose=verbose)
     if verbose:
@@ -153,25 +203,22 @@ def validate(cfg: dict, data_module, model: nn.Module, device="cuda",
     return val_loss, val_map
 
 
-_TRAIN_KEYS = ("image", "joints", "joints_vis")
-
-
 class Trainer:
-    """SBP training on one device (``device="cuda"`` by default; raises
-    without CUDA).  ``data_module`` gives ``train_loader()`` (with
-    ``set_epoch``), ``val_loader()`` and ``val_db``.  ``step`` and the
+    """SBP or SPM (``kind``) training on one device (``device="cuda"``
+    by default; raises without CUDA).  ``data_module`` gives
+    ``train_loader()`` (with ``set_epoch``), ``val_loader()`` and
+    ``val_db``.  ``step`` and the
     epoch counter continue across a resume."""
 
     def __init__(self, cfg: dict, data_module, kind: str = "sbp",
                  logging: bool = True, device="cuda"):
-        if kind != "sbp":
-            raise ValueError(f"the port trains SBP only so far, got {kind!r}")
         self.cfg = cfg
-        self.kind = kind
+        self.kind = _check_kind(kind)
+        self.keys = _KEYS[kind]
         self.dm = data_module
         self.device = resolve_device(device)
 
-        model = build_model(cfg).to(self.device).train()
+        model = build_model(cfg, kind).to(self.device).train()
         optimizer, schedule = build_optimizer_from_cfg(cfg, model)
         self.state = TrainState(model, optimizer, schedule)
 
@@ -188,10 +235,20 @@ class Trainer:
         # user overrides: rotate_limit / scale_range / ratio_range /
         # color_jitter / rotate_prob / jitter_prob / angle_groups
         augment.update(cfg.get("augment_options") or {})
-        self.train_step, self.eval_step = make_sbp_steps(
-            model, optimizer, cfg["input_size"], tuple(cfg["output_size"]),
-            int(cfg["num_keypoints"]), float(cfg["sigma"]),
-            float(cfg["conf_threshold"]), augment=augment)
+        if kind == "spm":
+            if cfg.get("augment_geometric"):
+                augment["geometric"] = True
+            self.train_step, self.eval_step = make_spm_steps(
+                model, optimizer, cfg["input_size"], cfg["output_size"],
+                int(cfg["num_keypoints"]), float(cfg["sigma"]),
+                float(cfg["conf_threshold"]), augment=augment,
+                max_persons=int(cfg.get("max_persons", 30)))
+        else:
+            self.train_step, self.eval_step = make_sbp_steps(
+                model, optimizer, cfg["input_size"],
+                tuple(cfg["output_size"]), int(cfg["num_keypoints"]),
+                float(cfg["sigma"]), float(cfg["conf_threshold"]),
+                augment=augment)
 
         if cfg.get("model_pretrained"):
             path = cfg["model_pretrained"]
@@ -230,7 +287,8 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def summary(self):
-        h, w = self.cfg["input_size"]
+        size = self.cfg["input_size"]
+        h, w = (size, size) if self.kind == "spm" else size
         return print_summary(self.model, (1, 3, int(h), int(w)))
 
     def _log(self, tag: str, value: float, step: int):
@@ -337,7 +395,7 @@ class Trainer:
             for i, batch in enumerate(self.dm.val_loader()):
                 if i >= sanity:
                     break
-                self.eval_step(self._device_batch(batch, _TRAIN_KEYS))
+                self.eval_step(self._device_batch(batch, self.keys))
             self.model.train()
             print(f"sanity validation: {sanity} batch(es) ok")
 
@@ -358,7 +416,7 @@ class Trainer:
             for batch in train_loader:
                 self._profile()
                 loss = self.train_step(
-                    self._device_batch(batch, _TRAIN_KEYS), gen, host_gen)
+                    self._device_batch(batch, self.keys), gen, host_gen)
                 self.global_step += 1
                 n_img += len(batch["image"])
                 # keep the device scalar: no host sync per step
@@ -403,6 +461,6 @@ class Trainer:
         put back in train mode.  Returns (val_loss, val_mAP)."""
         try:
             return validate(self.cfg, self.dm, self.model, self.device,
-                            verbose)
+                            verbose, self.kind)
         finally:
             self.model.train()

@@ -1,0 +1,53 @@
+"""Train the SPM (Single-Stage Multi-Person Pose Machines) model, on the
+GPU by default.  Counterpart of the repo's train_spm.py (reference:
+train_spm.py:76-82):
+
+    python -m pytorch_pose_estimation_tpu_torch.train_spm \\
+        --cfg configs/spm_coco.yaml [--resume CKPT|auto] [--device cuda]
+
+``--resume auto`` continues from the newest checkpoint of the config's
+``save_dir``.
+"""
+
+import argparse
+
+from .config import get_configs
+from .data import SPMCOCODataModule
+from .train import Trainer, resolve_device
+
+
+def train(cfg: dict, resume=None, device: str = "cuda"):
+    resolve_device(device)
+    data_module = SPMCOCODataModule(
+        train_path=cfg["train_path"],
+        val_path=cfg["val_path"],
+        img_dir=cfg["img_dir"],
+        input_size=cfg["input_size"],
+        output_size=cfg["output_size"],
+        num_keypoints=cfg["num_keypoints"],
+        sigma=cfg["sigma"],
+        workers=cfg["workers"],
+        batch_size=cfg["batch_size"],
+        class_labels=cfg["class_labels"],
+        max_persons=cfg.get("max_persons", 30),
+        cache_images=bool(cfg.get("cache_images", False)),
+    )
+    data_module.setup()
+
+    trainer = Trainer(cfg, data_module, kind="spm", device=device)
+    trainer.summary()
+    return trainer.fit(resume=resume)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--cfg", required=True, type=str, help="config file")
+    parser.add_argument("--resume", type=str, default=None,
+                        help="checkpoint to resume from, or 'auto'")
+    parser.add_argument("--device", default="cuda", type=str)
+    args = parser.parse_args(argv)
+    return train(get_configs(args.cfg), args.resume, args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -46,6 +46,32 @@ def _t(x):
     return torch.from_numpy(np.array(x).reshape(-1))
 
 
+def _jax_clahe_draws(k_cl, b, clahe_prob):
+    """``clahe_luma_batch``'s per-example draws from its key."""
+    def one(kk):
+        k_do, k_clip = jax.random.split(kk)
+        return (jax.random.uniform(k_do, ()) < clahe_prob,
+                jax.random.uniform(k_clip, (), minval=1.0, maxval=4.0))
+    do, clip = jax.vmap(one)(jax.random.split(k_cl, b))
+    return _t(do), _t(clip)
+
+
+def _jax_jitter_draws(k_col, b, jitter_params, jitter_prob):
+    """``color_jitter_batch``'s draws from its key: the four factors, the
+    order and the apply mask."""
+    fb, fc, fs, fh = jitter_params
+    k_b, k_c, k_s, k_h, k_perm, k_apply = jax.random.split(k_col, 6)
+    shape = (b, 1, 1, 1)
+    factors = [jax.random.uniform(k, shape, minval=lo, maxval=hi)
+               for k, lo, hi in ((k_b, 1 - fb, 1 + fb), (k_c, 1 - fc, 1 + fc),
+                                 (k_s, 1 - fs, 1 + fs))]
+    factors.append(jax.random.uniform(k_h, (b, 1, 1), minval=-fh, maxval=fh))
+    order = int(jax.random.randint(k_perm, (), 0, 24))
+    jitter = (_t(jax.random.uniform(k_apply, shape) < jitter_prob)
+              if jitter_prob < 1.0 else None)
+    return [_t(f) for f in factors], order, jitter
+
+
 def jax_draws(key, b, out_hw, rotate_limit=40.0, scale_range=(0.4, 1.0),
               ratio_range=(0.4, 1.6), jitter_params=(0.5, 0.2, 0.5, 0.1),
               clahe_prob=0.0, rotate_prob=0.5, jitter_prob=0.5,
@@ -63,27 +89,27 @@ def jax_draws(key, b, out_hw, rotate_limit=40.0, scale_range=(0.4, 1.0),
         rotate = np.asarray(jax.random.uniform(k_rapply, (b,)) < rotate_prob)
     clahe = clahe_clip = None
     if clahe_prob > 0:
-        def one(kk):
-            k_do, k_clip = jax.random.split(kk)
-            return (jax.random.uniform(k_do, ()) < clahe_prob,
-                    jax.random.uniform(k_clip, (), minval=1.0, maxval=4.0))
-        do, clip = jax.vmap(one)(jax.random.split(k_cl, b))
-        clahe, clahe_clip = _t(do), _t(clip)
-    fb, fc, fs, fh = jitter_params
-    k_b, k_c, k_s, k_h, k_perm, k_apply = jax.random.split(k_col, 6)
-    shape = (b, 1, 1, 1)
-    factors = [jax.random.uniform(k, shape, minval=lo, maxval=hi)
-               for k, lo, hi in ((k_b, 1 - fb, 1 + fb), (k_c, 1 - fc, 1 + fc),
-                                 (k_s, 1 - fs, 1 + fs))]
-    factors.append(jax.random.uniform(k_h, (b, 1, 1), minval=-fh, maxval=fh))
-    order = int(jax.random.randint(k_perm, (), 0, 24))
-    jitter = (_t(jax.random.uniform(k_apply, shape) < jitter_prob)
-              if jitter_prob < 1.0 else None)
+        clahe, clahe_clip = _jax_clahe_draws(k_cl, b, clahe_prob)
+    factors, order, jitter = _jax_jitter_draws(k_col, b, jitter_params,
+                                               jitter_prob)
     x0, y0, cw, ch = jax.vmap(lambda kk: J._sample_crop(
         kk, h, w, scale_range, ratio_range))(jax.random.split(k_crop, b))
-    return P.AugmentDraws(_t(angles), _t(rotate),
-                          *map(_t, factors), order, jitter, _t(x0), _t(y0),
-                          _t(cw), _t(ch), clahe, clahe_clip)
+    return P.AugmentDraws(_t(angles), _t(rotate), *factors, order, jitter,
+                          _t(x0), _t(y0), _t(cw), _t(ch), clahe, clahe_clip)
+
+
+def jax_spm_draws(key, b, jitter_params=(0.5, 0.2, 0.5, 0.1),
+                  clahe_prob=0.0, jitter_prob=0.5) -> P.PhotometricDraws:
+    """The draws of the JAX SPM train step's default augmentation
+    (train/steps.py:168-177: ``k_cl, k_col = split(rng)``) as the port's
+    ``PhotometricDraws``."""
+    k_cl, k_col = jax.random.split(key)
+    clahe = clahe_clip = None
+    if clahe_prob > 0:
+        clahe, clahe_clip = _jax_clahe_draws(k_cl, b, clahe_prob)
+    factors, order, jitter = _jax_jitter_draws(k_col, b, jitter_params,
+                                               jitter_prob)
+    return P.PhotometricDraws(*factors, order, jitter, clahe, clahe_clip)
 
 
 def _images(seed=0, b=B, h=H, w=W):
@@ -214,6 +240,28 @@ def test_augment_batch_matches_jax(seed, out_dtype):
     _check_joints(got[1].numpy(), got[2].numpy(), np.asarray(want[1]),
                   np.asarray(want[2]))
     assert 0 < float(got[2].sum()) < float(vis.sum())  # some left the frame
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_spm_photometric_matches_jax(dtype):
+    """The SPM train step's default augmentation (train/steps.py:166-177):
+    /255, CLAHE in fp32, then the jitter in the model's dtype; the JAX side
+    op by op.  Exact at bf16, 1e-6 at fp32 (the contrast mean)."""
+    images = _batch(12)[0]
+    key = jax.random.PRNGKey(4)
+    k_cl, k_col = jax.random.split(key)
+    with jax.disable_jit():
+        x = J.clahe_luma_batch(k_cl, jnp.asarray(images).astype(jnp.float32)
+                               / 255.0, 0.5)
+        want = J.color_jitter_batch(k_col, x.astype(dtype), apply_prob=0.5)
+    draws = jax_spm_draws(key, B, clahe_prob=0.5)
+    assert 0 < int(draws.clahe.sum()) < B
+    got = P.spm_photometric_core(torch.from_numpy(images), draws,
+                                 getattr(torch, dtype))
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(
+        got.float().numpy(), nchw(want.astype(jnp.float32)).numpy(), rtol=0,
+        atol=1e-6 if dtype == "float32" else 0)
 
 
 def test_joints_ride_rotation_and_crop():

@@ -1,7 +1,8 @@
 """The port stands alone: importing any of its modules (and chip_smoke.py)
 loads no jax and nothing of the JAX package, and needs neither cv2, PyYAML
-nor tensorboardX; its entry points (the Trainer and the train_sbp module
-among them) default to the GPU and raise without one; the kernel module
+nor tensorboardX; its entry points (the Trainer, ``load_for_inference``
+and the train and inference modules among them) default to the GPU and
+raise without one; the kernel module
 imports without nvcc and fails clearly when asked to build without it."""
 
 import os
@@ -72,6 +73,31 @@ def test_trainer_and_train_sbp_default_to_cuda_and_raise_without_it(
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_sbp.train(cfg)
     assert not (tmp_path / "saved").exists()  # nothing written first
+
+
+def test_spm_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from pytorch_pose_estimation_tpu_torch import inference_spm, train_spm
+    from pytorch_pose_estimation_tpu_torch.train import (Trainer,
+                                                         load_for_inference)
+    cfg = {"model": "single-stage-pose-machines", "dataset_name": "coco",
+           "train_path": str(tmp_path / "none.json"),
+           "val_path": str(tmp_path / "none.json"), "img_dir": str(tmp_path),
+           "input_size": 64, "output_size": 16, "num_keypoints": 17,
+           "sigma": 1, "conf_threshold": 0.5, "workers": 0, "batch_size": 2,
+           "class_labels": [], "epochs": 1, "optimizer": "sgd",
+           "save_dir": str(tmp_path / "saved")}
+    calls = [lambda: Trainer(cfg, None, kind="spm"),
+             lambda: load_for_inference(cfg, None, "spm"),
+             lambda: train_spm.train(cfg),
+             lambda: inference_spm.inference(cfg, None,
+                                             str(tmp_path / "out"))]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert not (tmp_path / "saved").exists()  # nothing written first
+    assert not (tmp_path / "out").exists()
 
 
 def test_kernel_wrappers_take_only_cuda_tensors():

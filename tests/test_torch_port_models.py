@@ -10,12 +10,13 @@ import pytest
 import torch
 
 from pytorch_pose_estimation_tpu.models import SBP as JaxSBP
+from pytorch_pose_estimation_tpu.models import SPM as JaxSPM
 from pytorch_pose_estimation_tpu.models.summary import count_params as \
     jax_count_params
 from pytorch_pose_estimation_tpu.models.torch_import import \
     import_torch_state_dict
 from pytorch_pose_estimation_tpu_torch.models import (
-    SBP, count_params, from_jax_variables, lecun_normal_,
+    SBP, SPM, count_params, from_jax_variables, lecun_normal_,
     load_state_dict_file)
 from pytorch_pose_estimation_tpu_torch.train import build_model
 
@@ -29,29 +30,32 @@ def _to_np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def calibrated_jax_variables(x=None, seed=0):
-    """A seeded flax SBP init whose BN running statistics are then set to
-    the batch statistics of ``x`` (NCHW fp32; default a seeded uniform
-    batch), so that eval-mode activations stay O(1) through the 22 blocks
-    (with the init's mean 0 / var 1 they shrink to ~1e-5 at the logits,
-    where every comparison is trivial).  The statistics are taken with the
-    port in train mode (momentum 1) and carried back through the JAX
-    package's own importer."""
-    model = JaxSBP(num_keypoints=17)
+def calibrated_jax_variables(x=None, seed=0, kind="sbp", input_hw=INPUT_HW):
+    """A seeded flax SBP (or SPM, ``kind``) init whose BN running
+    statistics are then set to the batch statistics of ``x`` (NCHW fp32;
+    default a seeded uniform batch at ``input_hw``), so that eval-mode
+    activations stay O(1) through the 22 blocks (with the init's mean 0 /
+    var 1 they shrink to ~1e-5 at the logits, where every comparison is
+    trivial).  The statistics are taken with the port in train mode
+    (momentum 1) and carried back through the JAX package's own
+    importer."""
+    jax_cls, port_cls = (JaxSPM, SPM) if kind == "spm" else (JaxSBP, SBP)
+    model = jax_cls(num_keypoints=17)
     variables = _to_np(model.init(jax.random.PRNGKey(seed),
-                                  jnp.zeros((1,) + INPUT_HW + (3,))))
-    port = SBP(17)
-    port.load_state_dict(from_jax_variables(variables))
+                                  jnp.zeros((1,) + tuple(input_hw) + (3,))))
+    port = port_cls(17)
+    port.load_state_dict(from_jax_variables(variables, kind))
     for m in port.modules():
         if isinstance(m, torch.nn.BatchNorm2d):
             m.momentum = 1.0
     if x is None:
-        x = np.random.RandomState(seed).rand(8, 3, *INPUT_HW)
+        x = np.random.RandomState(seed).rand(8, 3, *input_hw)
     x = torch.from_numpy(np.asarray(x, np.float32))
     with torch.no_grad():
         port.train()(x)
         # logits within +-1 here: fp32 reordering error grows with them
-        port.sbp_head[0].weight /= port.eval()(x).abs().max()
+        getattr(port, f"{kind}_head")[0].weight /= \
+            port.eval()(x).abs().max()
     return _to_np(import_torch_state_dict(port.state_dict()))
 
 
