@@ -16,7 +16,9 @@ non-zero, printing no result:
    take scalar loads and stores; 51 maps; NaN); then times (CUDA events),
    bounds and the plain version's times at B=64 and B=256, and the
    kernel's time and share of its HBM bound at B=1024, where each tensor
-   is 4x the L2; K2 also timed with the L2 flushed before each call;
+   is 4x the L2; K2 also timed with the L2 flushed before each call; then
+   both kernels at the PIS shape (B=256, K=11, 64x48): K1's error 0, K2's
+   x and y identical, their times;
 4. serve: full-width SBP (darknet19, 256x192 input, 36,606,368 parameters,
    seeded weights, bf16) through ``load_sbp_predictor``: batch 1, batch 1,
    batch 64, uint8; plus one fp32 forward on the card against the CPU;
@@ -51,13 +53,37 @@ non-zero, printing no result:
    resumed epoch, the step's time and split, one fp32 step at 256x256 on
    the card against the CPU, 30 steps on a fixed batch (the loss must fall
    below a quarter), and one step with ``augment_geometric``: its time
-   and peak memory.
+   and peak memory;
+8. PIS at full width (configs/sbp_pis.yaml: darknet19 SBP with an
+   11-channel head, 256x192, 64x48 maps, sigma 2, batch 256, bf16, sgd
+   nesterov under yolo_lr with burn-in 1000, CLAHE on the device, seeded
+   11-joint crops in memory), the launch counts set to 0 before: a.
+   ``saving_weights`` of phase 6's SBP ``last`` as ``model_pretrained``
+   (the backbone must be the donor's, the rest the PIS model's own init);
+   b. ``Trainer(kind="pis").fit()`` for 10 steps with validation through
+   ``SBPmAPPIS`` (51 numbers per result) and a resumed epoch, K1 once per
+   train and eval step and K2 once per eval step, then the step's time and
+   split; c. the predictor at batch 1, 1 and 64 (joints [B, 11, 3], K2 once
+   a call); d. the GT probe at K=11; e. both behaviour harness functions
+   on 64 labelled samples each, whose confusion counts from K2's joints
+   must equal those of the plain decode of the same logits on the CPU;
+9. the darknet19 classifier (configs/darknet19_classifier.yaml: 64x64,
+   200 classes, batch 256, bf16, sgd nesterov lr 0.1 under
+   cosine_annealing_warm_restarts; seeded images and labels in memory):
+   ``train_classifier.train`` for 10 steps with validation and
+   checkpoints; the step's time, split, images/s and peak memory; one
+   fp32 step on the card against the CPU with the same weights and
+   dropout mask; 30 steps on a fixed batch with dropout (the loss must
+   fall); an SBP ``Trainer`` whose ``backbone_pretrained`` is the
+   classifier's ``last`` (all 18 convs and their BN equal); no kernel may
+   launch in it.
 
 The last three lines of standard output: the card's name and power limit,
-one JSON object describing each kernel, and
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-The configs are written inline with the values of configs/sbp_coco.yaml
-and configs/spm_coco.yaml, so neither PyYAML nor cv2 is needed.  Imports
+one JSON object describing each kernel (launches summed over phases 4-9),
+and ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
+...}}``.  The configs are written inline with the values of
+configs/sbp_coco.yaml, spm_coco.yaml, sbp_pis.yaml and
+darknet19_classifier.yaml, so neither PyYAML nor cv2 is needed.  Imports
 nothing of JAX.
 """
 
@@ -70,16 +96,26 @@ import time
 import numpy as np
 import torch
 
-from pytorch_pose_estimation_tpu_torch import optim
+from pytorch_pose_estimation_tpu_torch import (optim,
+                                               pis_falling_down_test_code,
+                                               pis_handle_test_code,
+                                               saving_weights,
+                                               train_classifier)
 from pytorch_pose_estimation_tpu_torch.data import HostLoader
-from pytorch_pose_estimation_tpu_torch.eval import SBPmAPCOCO
-from pytorch_pose_estimation_tpu_torch.models import count_params
+from pytorch_pose_estimation_tpu_torch.eval import SBPmAPCOCO, SBPmAPPIS
+from pytorch_pose_estimation_tpu_torch.models import (count_params,
+                                                      load_state_dict_file)
+from pytorch_pose_estimation_tpu_torch.models.darknet import (
+    STAGE_NAMES, dropout_mask_shape, sample_dropout_mask)
 from pytorch_pose_estimation_tpu_torch.ops import decode as decode_ops
 from pytorch_pose_estimation_tpu_torch.ops import kernels
 from pytorch_pose_estimation_tpu_torch.ops import targets as target_ops
 from pytorch_pose_estimation_tpu_torch.ops.image import (normalize_batch,
                                                          sample_augment,
                                                          sample_photometric)
+from pytorch_pose_estimation_tpu_torch.pis import (HANDLE_ROI, NEG_MAX,
+                                                   POS_MIN, FallingDown,
+                                                   HandleGrip)
 from pytorch_pose_estimation_tpu_torch.profile_train_step import spm_people
 from pytorch_pose_estimation_tpu_torch.train import (Trainer, build_model,
                                                      load_for_inference,
@@ -230,19 +266,19 @@ def phase_k1(gen):
     return err, rows
 
 
-def _decode_cases(gen, b, h, w):
-    """(name, logits, threshold, pred) on [b, K, h, w] maps."""
-    rand = (torch.randn(b, K, h, w, generator=gen) * 3).cuda()
-    ties = torch.full((b, K, h, w), -5.0, device="cuda")
+def _decode_cases(gen, b, h, w, k=K):
+    """(name, logits, threshold, pred) on [b, k, h, w] maps."""
+    rand = (torch.randn(b, k, h, w, generator=gen) * 3).cuda()
+    ties = torch.full((b, k, h, w), -5.0, device="cuda")
     ties[:, 0] = 30.0  # saturates to 1.0 everywhere: index 0 wins
-    flat = ties.view(b, K, h * w)
+    flat = ties.view(b, k, h * w)
     flat[:, 1, 100] = 25.0  # ties with 20.0 at index 50 after the sigmoid
     flat[:, 1, 50] = 20.0
     ties[:, 2] = -20.0  # nothing clears the threshold: sentinel
-    below = torch.zeros(b, K, h, w, device="cuda")  # 0.5 < 0.9
-    stamped = kernels.sbp_heatmaps_cuda(_joints(gen, b, K, h, w), (h, w), 2.0)
+    below = torch.zeros(b, k, h, w, device="cuda")  # 0.5 < 0.9
+    stamped = kernels.sbp_heatmaps_cuda(_joints(gen, b, k, h, w), (h, w), 2.0)
     nan = rand.clone()
-    nan.view(b, K, h * w)[0, 3, h * w // 2 + 1] = float("nan")
+    nan.view(b, k, h * w)[0, 3, h * w // 2 + 1] = float("nan")
     return [("random x3", rand, 0.25, True),
             ("saturated ties", ties, 0.25, True),
             ("all below threshold", below, 0.9, True),
@@ -261,12 +297,12 @@ def _at_offset_1(x):
     return view
 
 
-def _decode_check(gen, b, h, w, offset):
+def _decode_check(gen, b, h, w, offset, k=K):
     """Every case on one layout: x and y identical to the plain version,
     conf within 1e-6 (both compute the sigmoid as 1/(1+expf(-x)))."""
-    label = f"B={b} {h}x{w}" + (" at offset 1" if offset else "")
+    label = f"B={b} K={k} {h}x{w}" + (" at offset 1" if offset else "")
     err = 0.0
-    cases = _decode_cases(gen, b, h, w)
+    cases = _decode_cases(gen, b, h, w, k)
     s = np.float32(192 / w)
     for name, logits, thr, pred in cases:
         if offset:
@@ -277,7 +313,7 @@ def _decode_check(gen, b, h, w, offset):
         e = float((got - want).abs().max())
         found = int((got[..., 2] >= 0).sum())
         print(f"K2 {label} {name}: x/y identical {xy_same}, max abs err "
-              f"{e:.3g}, {found}/{b * K} found")
+              f"{e:.3g}, {found}/{b * k} found")
         check(xy_same and e <= 1e-6, f"K2 disagrees on {label} {name}: {e}")
         err = max(err, e)
         if name == "saturated ties":
@@ -367,6 +403,42 @@ def phase_k2(gen):
     return err, rows
 
 
+def phase_k11(gen):
+    """Both kernels at the PIS shape (B=256, K=11, 64x48): K1 against its
+    plain version at sigma 2 (error 0), K2 on every decode case (x and y
+    identical, conf within 1e-6); then their times, bounds and the plain
+    versions' times.  Returns (K1 error, K2 error, rows)."""
+    b = PIS_B
+    joints = _joints(gen, b, PIS_K, H, W)
+    got = kernels.sbp_heatmaps_cuda(joints, (H, W), 2.0)
+    want = target_ops.sbp_heatmaps(joints, (H, W), PIS_K, 2.0)
+    k1_err = float((got - want).abs().max())
+    print(f"K1 B={b} K={PIS_K} {H}x{W} sigma=2: max abs err {k1_err:.3g} vs "
+          f"plain")
+    check(k1_err == 0.0, f"K1 disagrees with its plain version at K={PIS_K}")
+    k2_err = _decode_check(gen, b, H, W, 0, PIS_K)
+    x = torch.randn(b, PIS_K, H, W, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(2)) * 3
+    n = b * PIS_K * H * W
+    rows = {}
+    for name, fn, plain, n_bytes, ops in (
+            ("sbp_heatmaps_cuda",
+             lambda: kernels.sbp_heatmaps_cuda(joints, (H, W), 2.0),
+             lambda: target_ops.sbp_heatmaps(joints, (H, W), PIS_K, 2.0),
+             b * PIS_K * 2 * 4 + n * 4, n * K1_OPS_PER_ELEM),
+            ("decode_sbp_cuda",
+             lambda: kernels.decode_sbp_cuda(x, 192, 0.25),
+             lambda: decode_ops.decode_sbp_batch(x, 192, 0.25),
+             n * 4 + b * PIS_K * 3 * 4, n * K2_OPS_PER_ELEM)):
+        ms = device_ms(fn)
+        plain_ms = device_ms(plain, iters=20)
+        bnd, by = bound_ms(n_bytes, ops)
+        rows[name] = (ms, plain_ms, bnd, by)
+        print(f"{name} B={b} K={PIS_K}: kernel {ms * 1e3:.2f} us, bound "
+              f"{bnd * 1e3:.2f} us ({by}), plain {plain_ms * 1e3:.2f} us")
+    return k1_err, k2_err, rows
+
+
 def phase_serve():
     """Three requests through the fused uint8 -> joints predictor."""
     predict = load_sbp_predictor(CFG, None)
@@ -387,26 +459,29 @@ def phase_serve():
               f"{dt * 1e3:.1f} ms host clock (first call includes set-up)")
 
 
-def _eval_set(tmp, n_images, rng):
+def _eval_set(tmp, n_images, rng, k=K, name="person_keypoints_val.json"):
     """One seeded batch of person crops already at the input size, bbox
-    [0, 0, 192, 256] (crop frame == image frame), and its COCO file."""
-    joints = np.stack([rng.uniform(0, 192, (n_images, K)),
-                       rng.uniform(0, 256, (n_images, K))],
+    [0, 0, 192, 256] (crop frame == image frame), and its COCO file (17
+    keypoint slots; with k=11 the last 6 are zero, as in the PIS
+    annotations)."""
+    joints = np.stack([rng.uniform(0, 192, (n_images, k)),
+                       rng.uniform(0, 256, (n_images, k))],
                       axis=-1).astype(np.float32)
-    vis = (rng.rand(n_images, K) > 0.2).astype(np.float32)
+    vis = (rng.rand(n_images, k) > 0.2).astype(np.float32)
     joints[vis == 0] = 0.0
     images, anns = [], []
     for i in range(n_images):
         kps = []
         for (x, y), v in zip(joints[i], vis[i]):
             kps += [float(x), float(y), 2 if v else 0]
+        kps += [0, 0, 0] * (17 - k)
         images.append({"id": i + 1, "file_name": f"{i + 1:012d}.jpg",
                        "width": 192, "height": 256})
         anns.append({"id": i + 1, "image_id": i + 1, "category_id": 1,
                      "iscrowd": 0, "area": 192.0 * 256.0,
                      "bbox": [0.0, 0.0, 192.0, 256.0], "keypoints": kps,
                      "num_keypoints": int(vis[i].sum())})
-    path = os.path.join(tmp, "person_keypoints_val.json")
+    path = os.path.join(tmp, name)
     with open(path, "w") as f:
         json.dump({"images": images, "annotations": anns,
                    "categories": [{"id": 1, "name": "person"}]}, f)
@@ -448,14 +523,15 @@ def phase_eval(batch, cfg):
           f"{val_loss:.6f}, AP@.5 {val_map:.4f} (random weights)")
 
 
-def gt_probe(batch, cfg):
+def gt_probe(batch, cfg, metric_cls=SBPmAPCOCO):
     """K1 stamps the eval batch's targets and K2 decodes them with
     pred=False: every visible joint must come back as trunc(joint*ratio)*4;
-    the AP of those joints must be ~1."""
+    the AP of those joints (``metric_cls``) must be ~1."""
     ratio = H / 256
     joints = torch.from_numpy(batch["joints"]).cuda()
     vis = torch.from_numpy(batch["joints_vis"]).cuda()
-    maps = _sbp_targets(joints, vis, ratio, (H, W), K, 2.0)
+    k = joints.shape[1]
+    maps = _sbp_targets(joints, vis, ratio, (H, W), k, 2.0)
     dec = decode_ops.decode_sbp_fast(maps, 192, 0.99, pred=False).cpu()
     j = batch["joints"]
     want = np.trunc(j * np.float32(ratio)) * 4
@@ -466,11 +542,12 @@ def gt_probe(batch, cfg):
           "GT probe: a stamped peak is not 1.0")
     check(bool((dec[..., 2].numpy()[~seen] == -1.0).all()),
           "GT probe: an invisible joint was found")
-    metric = SBPmAPCOCO(cfg["val_path"], cfg["input_size"], 0.25)
+    metric = metric_cls(cfg["val_path"], cfg["input_size"], 0.25)
     metric.update_state_decoded(batch, dec)
     ap = metric.result(verbose=False)
-    print(f"GT probe: K1 -> K2(pred=False) recovered all {int(seen.sum())} "
-          f"visible joints exactly; their AP@.5 {ap:.4f}")
+    print(f"GT probe K={k}: K1 -> K2(pred=False) recovered all "
+          f"{int(seen.sum())} visible joints exactly; their AP@.5 {ap:.4f} "
+          f"({metric_cls.__name__})")
     check(ap > 0.99, f"GT probe: AP@.5 {ap}")
 
 
@@ -597,16 +674,13 @@ def host_ms(fn, n=10, warmup=3):
     return (time.perf_counter() - t0) / n * 1e3
 
 
-def phase_train_timing(trainer, dm):
-    """The train step alone on a batch already on the card: steady state
-    by host clock (synchronized) after warm-up, then one step split by
-    CUDA events, and the peak device memory of these steps."""
-    batch = trainer._device_batch(next(iter(dm.train_loader())),
-                                  trainer.keys)
-    gen = torch.Generator("cuda").manual_seed(1)
-    host_gen = torch.Generator().manual_seed(1)
+def time_step(label, b, step):
+    """A train step alone on a batch already on the card (``step(marker=
+    None)`` runs one): steady state by host clock (synchronized) after
+    warm-up, then one step split by CUDA events, and the peak device
+    memory of these steps.  Returns (ms, split)."""
     torch.cuda.reset_peak_memory_stats()
-    step_ms = host_ms(lambda: trainer.train_step(batch, gen, host_gen))
+    step_ms = host_ms(step)
     events = [torch.cuda.Event(enable_timing=True)]
     names = []
 
@@ -618,19 +692,30 @@ def phase_train_timing(trainer, dm):
 
     torch.cuda.synchronize()
     events[0].record()
-    trainer.train_step(batch, gen, host_gen, marker=marker)
+    step(marker=marker)
     torch.cuda.synchronize()
     split = {name: events[i].elapsed_time(events[i + 1])
              for i, name in enumerate(names)}
-    b, kind = dm.batch_size, trainer.kind
-    print(f"train {kind} step at batch {b}: {step_ms:.2f} ms "
+    print(f"train {label} step at batch {b}: {step_ms:.2f} ms "
           f"({b * 1e3 / step_ms:.0f} images/s), host clock over 10 steps "
           f"after 3 warm-up steps")
-    print(f"train {kind} step split (CUDA events, one step): " + ", ".join(
+    print(f"train {label} step split (CUDA events, one step): " + ", ".join(
         f"{k} {v:.2f} ms" for k, v in split.items()))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"train {kind}: peak device memory {peak:.2f} GiB over these steps")
+    print(f"train {label}: peak device memory {peak:.2f} GiB over these "
+          f"steps")
     return step_ms, split
+
+
+def phase_train_timing(trainer, dm):
+    """``time_step`` of the trainer's train step on its first batch."""
+    batch = trainer._device_batch(next(iter(dm.train_loader())),
+                                  trainer.keys)
+    gen = torch.Generator("cuda").manual_seed(1)
+    host_gen = torch.Generator().manual_seed(1)
+    return time_step(trainer.kind, dm.batch_size,
+                     lambda marker=None: trainer.train_step(
+                         batch, gen, host_gen, marker=marker))
 
 
 def _draws_to(draws, device):
@@ -647,21 +732,20 @@ def _update_gap(a, b) -> float:
     return float((ua - ub).norm() / ub.norm())
 
 
-def phase_train_vs_cpu(cfg, kind, batch, make_step, draws):
-    """One fp32 train step (TF32 off) on the card and on the CPU: same
-    seeded weights, same batch, same draws (drawn once on the CPU),
-    nesterov SGD with weight decay at a constant lr 1e-3.  For scale, the
-    CPU's step again with every weight moved by about one fp32 ulp: at this
-    init the update is ill-conditioned (the loss pushes every logit down,
-    so the gradient into each train-mode BN is nearly constant per channel
-    and its backward subtracts nearly all of it), and the card's rounding
-    differs from the CPU's everywhere, not in one ulp once."""
-    cfg = dict(cfg, precision="fp32")
+def step_vs_cpu(label, shape, build, run):
+    """One fp32 train step (TF32 off) on the card and on the CPU from the
+    same seeded weights (``build()``; ``run(model, device) -> loss`` takes
+    the step on that device).  For scale, the CPU's step again with every
+    weight moved by about one fp32 ulp: at this init the update is
+    ill-conditioned (the loss pushes every logit down, so the gradient into
+    each train-mode BN is nearly constant per channel and its backward
+    subtracts nearly all of it), and the card's rounding differs from the
+    CPU's everywhere, not in one ulp once."""
     runs = {}
-    for run, device in (("card", "cuda"), ("cpu", "cpu"),
-                        ("cpu, weights +-1 ulp", "cpu")):
-        model = build_model(cfg, kind).train()
-        if run.endswith("ulp"):
+    for name, device in (("card", "cuda"), ("cpu", "cpu"),
+                         ("cpu, weights +-1 ulp", "cpu")):
+        model = build()
+        if name.endswith("ulp"):
             noise = torch.Generator().manual_seed(5)
             with torch.no_grad():
                 for p in model.parameters():
@@ -669,17 +753,12 @@ def phase_train_vs_cpu(cfg, kind, batch, make_step, draws):
         model = model.to(device)
         start = {k: v.detach().clone().cpu()
                  for k, v in model.state_dict().items()}
-        opt = optim.get_optimizer("sgd", list(model.parameters()), lr=1e-3,
-                                  momentum=0.9, weight_decay=5e-3,
-                                  nesterov=True)
-        loss = make_step(model, opt)(
-            {k: v.to(device) for k, v in batch.items()},
-            draws=_draws_to(draws, device))
-        runs[run] = (float(loss), ({k: v.detach().cpu() for k, v in
-                                    model.state_dict().items()}, start))
+        loss = run(model, device)
+        runs[name] = (float(loss), ({k: v.detach().cpu() for k, v in
+                                     model.state_dict().items()}, start))
     (gl, gsd), (cl, csd) = runs["card"], runs["cpu"]
     check(all(torch.equal(gsd[1][k], csd[1][k]) for k in gsd[1]),
-          f"train {kind} vs CPU: the seeded weights differ")
+          f"train {label} vs CPU: the seeded weights differ")
     loss_rel = abs(gl - cl) / abs(cl)
     gap = _update_gap(gsd, csd)
     ulp_gap = _update_gap(runs["cpu, weights +-1 ulp"][1], csd)
@@ -687,8 +766,7 @@ def phase_train_vs_cpu(cfg, kind, batch, make_step, draws):
                       / csd[0][k].abs().max())
                 for k in csd[0] if k.endswith(("running_mean",
                                                "running_var")))
-    shape = tuple(batch["image"].shape)
-    print(f"train {kind} vs CPU, fp32 (TF32 off), images {shape}: loss "
+    print(f"train {label} vs CPU, fp32 (TF32 off), images {shape}: loss "
           f"{gl:.6f} card, {cl:.6f} CPU ({loss_rel:.2e} relative); the "
           f"parameters' update {gap:.2e} of its norm apart (the CPU's own "
           f"step with the weights moved by one ulp: {ulp_gap:.2e}); BN "
@@ -696,7 +774,25 @@ def phase_train_vs_cpu(cfg, kind, batch, make_step, draws):
     # SBP limits: measured 3.9e-7, 2.35e-2 (one-ulp yardstick 3.3e-3) and
     # 6.0e-5 on an H100; a plain-momentum update would be ~90% apart
     check(loss_rel <= 1e-5 and gap <= 0.1 and stats <= 3e-4,
-          f"train {kind} vs CPU: the card's step disagrees with the CPU's")
+          f"train {label} vs CPU: the card's step disagrees with the CPU's")
+
+
+def phase_train_vs_cpu(cfg, kind, batch, make_step, draws):
+    """``step_vs_cpu`` of a pose model's train step: the same batch and
+    draws (drawn once on the CPU), nesterov SGD with weight decay at a
+    constant lr 1e-3."""
+    cfg = dict(cfg, precision="fp32")
+
+    def run(model, device):
+        opt = optim.get_optimizer("sgd", list(model.parameters()), lr=1e-3,
+                                  momentum=0.9, weight_decay=5e-3,
+                                  nesterov=True)
+        return make_step(model, opt)(
+            {k: v.to(device) for k, v in batch.items()},
+            draws=_draws_to(draws, device))
+
+    step_vs_cpu(kind, tuple(batch["image"].shape),
+                lambda: build_model(cfg, kind).train(), run)
 
 
 def phase_train_learns(kind, batch, make_step):
@@ -737,6 +833,7 @@ def phase_sbp_train(path, batch, rng, tmp):
           f"train: K2 launched {launches['decode_sbp_cuda']} times for "
           f"{eval_steps} eval steps")
     phase_train_timing(trainer, dm)
+    last = os.path.join(trainer.version_dir, "checkpoints", "last")
     del trainer
     phase_train_vs_cpu(
         train_cfg, "sbp", dm.first(2),
@@ -752,7 +849,7 @@ def phase_sbp_train(path, batch, rng, tmp):
         "sbp", dm.first(32, "cuda"),
         lambda m, o: make_sbp_steps(m, o, [256, 192], (64, 48), K, 2.0, 0.25,
                                     augment=augment)[0])
-    return launches
+    return launches, last
 
 
 # --------------------------------------------------------------------------
@@ -990,6 +1087,359 @@ def phase_spm(path, batch, rng, tmp):
     check(all(n == 0 for n in launches.values()),
           f"a kernel launched on the SPM path: {launches}")
 
+# --------------------------------------------------------------------------
+# phase 8: PIS
+# --------------------------------------------------------------------------
+
+PIS_K, PIS_B = 11, 256
+PIS_STEPS = 10  # per epoch, at batch 256
+# configs/sbp_pis.yaml, the fields the PIS path reads; validation and
+# checkpoints every epoch, CLAHE on the device
+PIS_CFG = dict(TRAIN_CFG, dataset_name="pis", num_keypoints=PIS_K,
+               scheduler_options={"burn_in": 1000, "steps": [20000],
+                                  "scales": [0.1]})
+BACKBONE = "backbone_features_module."
+
+
+def _counts():
+    return {kern.__name__: kern.launches for kern in kernels.KERNELS}
+
+
+def _delta(before):
+    return {k: n - before[k] for k, n in _counts().items()}
+
+
+def phase_pis_surgery(cfg, sbp_last, out):
+    """8a: ``saving_weights`` of phase 6's SBP ``last``, read as the PIS
+    model's ``model_pretrained``: the backbone must equal the donor's, the
+    deconvolutions and the 11-channel head must be the PIS model's own
+    init."""
+    out = saving_weights.main(["--ckpt", sbp_last, "--out", out])
+    donor = load_state_dict_file(sbp_last)
+    fresh = build_model(cfg, "pis").state_dict()
+    warm = Trainer(dict(cfg, model_pretrained=out), None, kind="pis",
+                   logging=False).model.state_dict()
+    bb = [k for k in warm if k.startswith(BACKBONE)]
+    check(len(bb) == 18 * 6 and all(
+        torch.equal(warm[k].cpu(), donor[k].cpu()) for k in bb),
+        "PIS surgery: the backbone is not the donor's")
+    rest = [k for k in warm if not k.startswith(BACKBONE)]
+    check(all(torch.equal(warm[k].cpu(), fresh[k]) for k in rest),
+          "PIS surgery: a deconvolution or the head is not the fresh init")
+    check(not torch.equal(fresh["deconv_1.0.weight"],
+                          donor["deconv_1.0.weight"].cpu())
+          and warm["sbp_head.0.weight"].shape[0] == PIS_K,
+          "PIS surgery: the head or the deconvolutions came from the donor")
+    print(f"PIS surgery: saving_weights kept {len(bb)} backbone tensors of "
+          f"the SBP model; the PIS Trainer's backbone equals them, its "
+          f"deconvolutions and {PIS_K}-channel head are its own")
+    return out
+
+
+def phase_pis_serve(cfg, ckpt):
+    """8c: the fused predictor at batch 1, 1 and 64: joints [B, 11, 3],
+    one K2 launch a call."""
+    predict = load_sbp_predictor(cfg, ckpt)
+    rng = np.random.RandomState(8)
+    for n in (1, 1, 64):
+        images = rng.randint(0, 256, (n, 256, 192, 3), dtype=np.uint8)
+        before = _counts()
+        t0 = time.perf_counter()
+        joints = predict(images)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(joints.shape == (n, PIS_K, 3) and joints.is_cuda and
+              bool(torch.isfinite(joints).all()),
+              f"serve pis: joints {tuple(joints.shape)}")
+        check(_delta(before) == {"sbp_heatmaps_cuda": 0,
+                                 "decode_sbp_cuda": 1},
+              f"serve pis: launches {_delta(before)} for one request")
+        print(f"serve pis: batch {n}: joints {tuple(joints.shape)} finite, "
+              f"{dt * 1e3:.1f} ms host clock (first call includes set-up)")
+
+
+class _LabelledVal:
+    """A data module for the behaviour harnesses: ``val_db`` records whose
+    image path holds the class two components up, and a val loader of
+    seeded crops with their bboxes in the camera frame."""
+
+    def __init__(self, labels, bboxes, rng, batch_size):
+        self.val_db = [{"image_path": os.path.join("/pis", lab,
+                                                   f"{i:06d}.jpg")}
+                       for i, lab in enumerate(labels)]
+        self.images = rng.randint(0, 256, (len(labels), 256, 192, 3),
+                                  dtype=np.uint8)
+        self.bboxes = np.asarray(bboxes, np.float64)
+        self.batch_size = batch_size
+
+    def val_loader(self):
+        return HostLoader(
+            list(range(len(self.val_db))),
+            lambda rec, index, epoch: {"image": self.images[rec],
+                                       "bbox": self.bboxes[rec]},
+            self.batch_size)
+
+
+def _behaviour_sets(rng, n):
+    """Seeded joints labelled by the rules themselves: right wrists about
+    the handle line of a 2560x1440 camera (grip / no_grip), and noses over
+    shoulder centers tilted by up to 40 degrees or lying within 10 degrees
+    of horizontal (normal / fallen); each person's bbox 288x384 around
+    them."""
+    grip = HandleGrip(HANDLE_ROI)
+    wrists = np.stack([rng.uniform(1100, 1700, n), rng.uniform(1000, 1400, n)],
+                      -1)
+    handle = (["grip" if grip.get_handle_grip_result(w) else "no_grip"
+               for w in wrists],
+              [[x - 144, y - 192, 288, 384] for x, y in wrists])
+    upright = rng.rand(n) < 0.5
+    theta = np.where(upright, rng.uniform(-40, 40, n),
+                     rng.choice([-1, 1], n) * rng.uniform(80, 100, n))
+    rule = FallingDown(NEG_MAX, POS_MIN)
+    labels, boxes = [], []
+    for t in np.deg2rad(theta):
+        center = rng.uniform(300, 900, 2)
+        nose = center + 100 * np.array([np.sin(t), -np.cos(t)])
+        labels.append("normal" if rule.get_falling_down_result(nose, center)
+                      else "fallen")
+        boxes.append([center[0] - 144, center[1] - 192, 288, 384])
+    return handle, (labels, boxes)
+
+
+def phase_pis_harness(cfg, ckpt, rng):
+    """8e: both behaviour harness functions over 64 labelled samples each,
+    once with the joints K2 decodes on the card and once with the plain
+    decode of the same logits on the CPU: the confusion counts must be
+    equal."""
+    _, forward = load_for_inference(cfg, ckpt, "pis")
+    logits = []
+
+    def on_card(images):
+        out = forward(images)
+        logits.append(out.cpu())
+        return decode_ops.decode_sbp_fast(out, 192, 0.25, True)
+
+    def on_cpu(images):
+        return decode_ops.decode_sbp_batch(logits.pop(0), 192, 0.25, True)
+
+    sets = _behaviour_sets(rng, 64)
+    for harness, (labels, boxes) in zip(
+            (pis_handle_test_code, pis_falling_down_test_code), sets):
+        dm = _LabelledVal(labels, boxes, rng, 32)
+        before = _counts()
+        card = harness.evaluate(on_card, dm, cfg["input_size"], -2)
+        calls = len(logits)
+        check(_delta(before) == {"sbp_heatmaps_cuda": 0,
+                                 "decode_sbp_cuda": calls},
+              f"harness: launches {_delta(before)} for {calls} calls")
+        cpu = harness.evaluate(on_cpu, dm, cfg["input_size"], -2)
+        name = harness.__name__.rsplit(".", 1)[-1]
+        print(f"harness {name}: (TP, TN, FP, FN) {tuple(map(int, card))} "
+              f"with K2 on the card, {tuple(map(int, cpu))} with the plain "
+              f"decode on the CPU; labels {labels.count(labels[0])} "
+              f"'{labels[0]}' of {len(labels)}")
+        check(tuple(card) == tuple(cpu) and sum(card) == len(labels),
+              f"harness {name}: the card's counts differ from the CPU's")
+
+
+def phase_pis(sbp_last, rng, tmp):
+    """Phase 8: PIS at full width (see the module docstring).  Returns the
+    kernels' launches over the phase."""
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    path, batch = _eval_set(tmp, B, rng, PIS_K,
+                            "pis_person_keypoints_val.json")
+    cfg = dict(PIS_CFG, val_path=path)
+    cfg["model_pretrained"] = phase_pis_surgery(
+        cfg, sbp_last, os.path.join(tmp, "pretrained_weights"))
+    check(_counts() == {"sbp_heatmaps_cuda": 0, "decode_sbp_cuda": 0},
+          "PIS surgery launched a kernel")
+    dm = _MemoryData(
+        {"image": rng.randint(0, 256, (512, 256, 192, 3), dtype=np.uint8),
+         "joints": np.stack([rng.uniform(0, 192, (512, PIS_K)),
+                             rng.uniform(0, 256, (512, PIS_K))],
+                            -1).astype(np.float32),
+         "joints_vis": (rng.rand(512, PIS_K) > 0.2).astype(np.float32)},
+        PIS_STEPS * PIS_B, batch, PIS_B)
+    launches, trainer = phase_train_fit(
+        cfg, dm, os.path.join(tmp, "saved_pis"), "pis", PIS_STEPS)
+    eval_steps = 2  # one val batch per validation, one validation a fit
+    check(launches == {"sbp_heatmaps_cuda": 2 * PIS_STEPS + eval_steps,
+                       "decode_sbp_cuda": eval_steps},
+          f"train pis: launches {launches} for {2 * PIS_STEPS} train and "
+          f"{eval_steps} eval steps")
+    with open("results.json") as f:
+        results = json.load(f)
+    check(len(results) == B and all(len(r["keypoints"]) == 51
+                                    for r in results),
+          "train pis: SBPmAPPIS did not write 51 numbers per result")
+    print(f"train pis: validation wrote {len(results)} results of 51 "
+          f"numbers (11 joints and 6 zero ones)")
+    before = _counts()
+    phase_train_timing(trainer, dm)
+    check(_delta(before) == {"sbp_heatmaps_cuda": 14, "decode_sbp_cuda": 0},
+          f"train pis timing: launches {_delta(before)} for 14 steps")
+    last = os.path.join(trainer.version_dir, "checkpoints", "last")
+    del trainer
+    phase_pis_serve(cfg, last)
+    before = _counts()
+    gt_probe(batch, cfg, SBPmAPPIS)
+    check(_delta(before) == {"sbp_heatmaps_cuda": 1, "decode_sbp_cuda": 1},
+          f"GT probe pis: launches {_delta(before)}")
+    phase_pis_harness(cfg, last, rng)
+    launches = _counts()
+    print(f"pis launches (phase 8): {launches}")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 9: the darknet19 classifier
+# --------------------------------------------------------------------------
+
+# configs/darknet19_classifier.yaml, the fields train_classifier reads;
+# validation and checkpoints every epoch
+CLS_CFG = {
+    "model": "darknet19", "dataset_name": "tiny-imagenet", "input_size": 64,
+    "num_classes": 200, "epochs": 1, "check_val_every_n_epoch": 1,
+    "batch_size": 256, "precision": "bf16", "seed": 0, "optimizer": "sgd",
+    "optimizer_options": {"lr": 0.1, "momentum": 0.9, "weight_decay": 5e-4,
+                          "nesterov": True},
+    "scheduler": "cosine_annealing_warm_restarts",
+    "scheduler_options": {"T_0": 10000, "T_mult": 2, "eta_min": 1e-4}}
+CLS_STEPS = 10  # per epoch, at batch 256
+CLS_N = 200
+
+
+class _MemoryClasses:
+    """ImageFolder-like data made in memory: ``n_train`` records over 512
+    seeded 64x64 images with seeded labels, and 256 val images."""
+
+    def __init__(self, rng, n_train, batch_size):
+        self.images = rng.randint(0, 256, (768, 64, 64, 3), dtype=np.uint8)
+        self.labels = rng.randint(0, CLS_N, 768).astype(np.int32)
+        self.train_db = list(range(n_train))
+        self.val_db = list(range(512, 768))
+        self.batch_size = batch_size
+
+    def _sample(self, i):
+        return {"image": self.images[i], "label": self.labels[i]}
+
+    def train_loader(self):
+        return HostLoader(self.train_db,
+                          lambda rec, index, epoch: self._sample(rec % 512),
+                          self.batch_size, shuffle=True, seed=0,
+                          drop_last=True)
+
+    def val_loader(self):
+        return HostLoader(self.val_db,
+                          lambda rec, index, epoch: self._sample(rec),
+                          self.batch_size)
+
+    def first(self, n, device="cpu"):
+        return (torch.from_numpy(self.images[:n]).to(device),
+                torch.from_numpy(self.labels[:n]).to(device))
+
+
+def phase_classifier_timing(state, dm):
+    """``time_step`` of the classifier's train step at batch 256 on a batch
+    already on the card, then its eval step."""
+    step, eval_step = train_classifier.make_classifier_steps(
+        state.model, state.optimizer, CLS_N)
+    images, labels = dm.first(256, "cuda")
+    gen = torch.Generator("cuda").manual_seed(1)
+    time_step("classifier", 256, lambda marker=None: step(
+        images, labels, gen, marker=marker))
+    eval_ms = host_ms(lambda: eval_step(images, labels))
+    print(f"eval classifier step at batch 256: {eval_ms:.2f} ms host clock")
+
+
+def phase_classifier_vs_cpu(dm):
+    """``step_vs_cpu`` of the classifier's step: the same batch of 8 and
+    dropout mask (drawn on the CPU), nesterov SGD at lr 0.1; phase 6b's
+    limits."""
+    cfg = dict(CLS_CFG, precision="fp32")
+    images, labels = dm.first(8)
+    mask = sample_dropout_mask(torch.Generator().manual_seed(2),
+                               dropout_mask_shape(8, 64, 64))
+
+    def run(model, device):
+        opt = optim.get_optimizer("sgd", list(model.parameters()), lr=0.1,
+                                  momentum=0.9, weight_decay=5e-4,
+                                  nesterov=True)
+        step, _ = train_classifier.make_classifier_steps(model, opt, CLS_N)
+        return step(images.to(device), labels.to(device),
+                    mask=mask.to(device))[0]
+
+    step_vs_cpu("classifier", tuple(images.shape),
+                lambda: train_classifier.build_classifier(cfg, CLS_N), run)
+
+
+def phase_classifier_learns(dm):
+    """30 bf16 steps on one fixed batch of 64 at a constant lr 0.01, the
+    dropout on: the mean loss of the last 5 steps must be below half that
+    of the first 5."""
+    model = train_classifier.build_classifier(CLS_CFG, CLS_N).cuda()
+    opt = optim.get_optimizer("sgd", list(model.parameters()), lr=0.01,
+                              momentum=0.9, weight_decay=5e-4, nesterov=True)
+    step, _ = train_classifier.make_classifier_steps(model, opt, CLS_N)
+    images, labels = dm.first(64, "cuda")
+    gen = torch.Generator("cuda").manual_seed(3)
+    losses = torch.stack([step(images, labels, gen)[0] for _ in range(30)])
+    losses = losses.float().cpu()
+    first, last = float(losses[:5].mean()), float(losses[-5:].mean())
+    print(f"train classifier learns: fixed batch of 64, 30 steps with "
+          f"dropout: mean loss of the first 5 {first:.4f}, of the last 5 "
+          f"{last:.4f}")
+    check(bool(torch.isfinite(losses).all()) and last < 0.5 * first,
+          "train classifier learns: the loss did not fall below half")
+
+
+def phase_classifier(tmp, rng):
+    """Phase 9: the darknet19 classifier (see the module docstring).  No
+    kernel may launch in it."""
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    dm = _MemoryClasses(rng, CLS_STEPS * 256, 256)
+    cfg = dict(CLS_CFG, save_dir=os.path.join(tmp, "saved_cls"))
+    t0 = time.perf_counter()
+    state = train_classifier.train(cfg, dm)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    ckpts = os.path.join(tmp, "saved_cls", "darknet19_tiny-imagenet",
+                         "version_0", "checkpoints")
+    names = sorted(os.listdir(ckpts))
+    want = sorted(["best", "last", f"epoch=0-step={CLS_STEPS}"])
+    check(names == sorted(want + [n + ".meta.json" for n in want]) and
+          state.step == CLS_STEPS, f"train classifier: {names}, step "
+          f"{state.step}")
+    with open(os.path.join(ckpts, "best.meta.json")) as f:
+        meta = json.load(f)
+    print(f"train classifier: train_classifier.train, {CLS_STEPS} steps at "
+          f"batch 256 and a validation in {dt:.1f} s host clock (model "
+          f"build and 3 checkpoint writes included); val_loss = 1 - top-1 "
+          f"{meta['val_loss']:.4f}")
+    phase_classifier_timing(state, dm)
+    del state
+    last = os.path.join(ckpts, "last")
+    src = load_state_dict_file(last)
+    phase_classifier_vs_cpu(dm)
+    phase_classifier_learns(dm)
+    warm = Trainer(dict(TRAIN_CFG, backbone_pretrained=last), None,
+                   logging=False).model.state_dict()
+    bb = [k for k in warm if k.startswith(BACKBONE)]
+    same = sum(torch.equal(warm[k].cpu(), src[
+        f"{STAGE_NAMES[int(k.split('.')[1])]}.{k.split('.', 2)[2]}"])
+        for k in bb)
+    print(f"warm start: an SBP Trainer with backbone_pretrained = the "
+          f"classifier's last: {same} of {len(bb)} backbone tensors (18 "
+          f"convs, their BN) equal the classifier's")
+    check(len(bb) == 18 * 6 and same == len(bb),
+          "warm start: the SBP backbone is not the classifier's")
+    launches = _counts()
+    print(f"classifier launches (phase 9): {launches}")
+    check(all(n == 0 for n in launches.values()),
+          f"a kernel launched on the classifier path: {launches}")
+
 
 def main():
     card = phase_device()
@@ -997,6 +1447,8 @@ def main():
     gen = torch.Generator().manual_seed(0)
     k1_err, k1_rows = phase_k1(gen)
     k2_err, k2_rows = phase_k2(gen)
+    k1_err11, k2_err11, _ = phase_k11(gen)
+    k1_err, k2_err = max(k1_err, k1_err11), max(k2_err, k2_err11)
 
     rng = np.random.RandomState(0)
     cwd = os.getcwd()
@@ -1016,12 +1468,17 @@ def main():
                   f"a kernel of the main path never launched: {launches}")
             gt_probe(batch, cfg)
             fp32_cross_check(CFG, "sbp", (1, 256, 192, 3))
-            train_launches = phase_sbp_train(path, batch, rng, tmp)
+            train_launches, sbp_last = phase_sbp_train(path, batch, rng, tmp)
             for name, n in train_launches.items():
                 launches[name] += n
             print(f"main path launches (serve, eval, train): {launches}")
             spm_path, spm_batch = _spm_eval_set(tmp, S_B, rng)
             phase_spm(spm_path, spm_batch, rng, tmp)
+            for name, n in phase_pis(sbp_last, rng, tmp).items():
+                launches[name] += n
+            phase_classifier(tmp, rng)
+            print(f"launches over phases 4-9 (SBP serve, eval and fit; "
+                  f"SPM; PIS; classifier): {launches}")
         finally:
             os.chdir(cwd)
 

@@ -71,10 +71,14 @@ def joints_from_ann(ann: dict, clean_bbox, num_keypoints: int):
     return joints, joints_vis
 
 
-def load_sbp_instance_db(coco: CocoAnnotations, img_dir: str,
-                         num_keypoints: int) -> List[dict]:
+def load_sbp_instance_db(coco: CocoAnnotations, img_dir: Optional[str],
+                         num_keypoints: int,
+                         absolute_paths: bool = False) -> List[dict]:
     """One record per valid person instance (the reference's gt_db,
-    dataset/sbp_coco_dataset.py:90-169)."""
+    dataset/sbp_coco_dataset.py:90-169).  With ``absolute_paths`` the
+    annotation's ``file_name`` is the image path as it stands and
+    ``img_dir`` is not joined (the PIS layout,
+    dataset/sbp_pis_dataset.py:156)."""
     person_cats = {cid for cid, c in coco.cats.items()
                    if c.get("name") == "person"}
     db = []
@@ -94,8 +98,10 @@ def load_sbp_instance_db(coco: CocoAnnotations, img_dir: str,
             joints, joints_vis = joints_from_ann(ann, clean, num_keypoints)
             if joints_vis.sum() == 0:
                 continue
+            file_name = im["file_name"]
             db.append({
-                "image_path": os.path.join(img_dir, im["file_name"]),
+                "image_path": file_name if absolute_paths
+                else os.path.join(img_dir, file_name),
                 "bbox": np.asarray(clean, np.float64),
                 "joints": joints,
                 "joints_vis": joints_vis,
@@ -128,7 +134,11 @@ class SBPCOCODataModule:
     """Builds the train and val instance DBs and their host loaders (the
     reference datamodule surface, dataset/sbp_coco_dataset.py:190-277), with
     the JAX package's constructor arguments.  ``use_native`` may be None or
-    False: the native C++ loader is not ported yet."""
+    False: the native C++ loader is not ported yet.  A subclass that sets
+    ``absolute_paths`` reads annotations whose ``file_name`` is already the
+    image path (``SBPPISDataModule``)."""
+
+    absolute_paths = False
 
     def __init__(self, train_path: Optional[str], val_path: Optional[str],
                  input_size, output_size, num_keypoints: int, sigma: float,
@@ -166,8 +176,10 @@ class SBPCOCODataModule:
                            ("val_db", self.val_path)):
             if path and os.path.exists(path):
                 setattr(self, attr, load_sbp_instance_db(
-                    CocoAnnotations(path), coco_img_dir(self.img_dir, path),
-                    self.num_keypoints))
+                    CocoAnnotations(path),
+                    None if self.absolute_paths
+                    else coco_img_dir(self.img_dir, path),
+                    self.num_keypoints, absolute_paths=self.absolute_paths))
 
     def _metadata(self, rec: dict) -> dict:
         """Joint coords crop frame -> resized-input frame (the reference's
@@ -224,14 +236,14 @@ class SBPCOCODataModule:
             return out
         return fn
 
-    def _loader(self, db, train: bool) -> HostLoader:
+    def _loader(self, db, train: bool, batch_size=None) -> HostLoader:
         return HostLoader(db, self._sample_fn(train),
-                          batch_size=self.batch_size, shuffle=train,
-                          seed=self.seed, drop_last=train,
+                          batch_size=batch_size or self.batch_size,
+                          shuffle=train, seed=self.seed, drop_last=train,
                           workers=self.workers)
 
-    def train_loader(self) -> HostLoader:
-        return self._loader(self.train_db, True)
+    def train_loader(self, batch_size=None) -> HostLoader:
+        return self._loader(self.train_db, True, batch_size)
 
-    def val_loader(self) -> HostLoader:
-        return self._loader(self.val_db, False)
+    def val_loader(self, batch_size=None) -> HostLoader:
+        return self._loader(self.val_db, False, batch_size)

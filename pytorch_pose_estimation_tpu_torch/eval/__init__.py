@@ -1,4 +1,4 @@
 from .cocoeval import KeypointEvaluator
-from .metrics import SBPmAPCOCO, SPMmAPCOCO
+from .metrics import SBPmAPCOCO, SBPmAPPIS, SPMmAPCOCO
 
-__all__ = ["KeypointEvaluator", "SBPmAPCOCO", "SPMmAPCOCO"]
+__all__ = ["KeypointEvaluator", "SBPmAPCOCO", "SBPmAPPIS", "SPMmAPCOCO"]

@@ -1,21 +1,26 @@
 """COCO keypoint mAP with the reference's accumulate/reset/result surface
-(reference: utils/sbp_utils.py:121-189, utils/spm_utils.py:282-351).
+(reference: utils/sbp_utils.py:121-189, utils/spm_utils.py:282-351,
+utils/sbp_pis_utils.py:9-47).
 
 Counterpart of pytorch_pose_estimation_tpu/eval/metrics.py (SBPmAPCOCO,
-SPMmAPCOCO).
+SBPmAPPIS, SPMmAPCOCO).
 The batch decodes in one call (kernel K2 on the card) and only the
 results-list packing runs on the host.  Joints below the confidence
 threshold become (0, 0, 0) with conf 0, visible joints get visibility flag
 1, score = mean joint confidence, and coordinates map input crop -> bbox
 frame -> original image.  SPM: one result per decoded person, keypoints
 scaled from the square input to the image; a (0, 0) keypoint is packed as
-(0, 0, 0) with conf 0.  The PIS metric comes with its slice.
+(0, 0, 0) with conf 0.  PIS: the 11 joints are packed as SBP's and 6
+zero joints added, 51 numbers per result, scored by the 17-keypoint OKS
+evaluator.  ``count`` limits an update to the first N rows of a padded
+batch.
 """
 
 from __future__ import annotations
 
 import json
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -27,6 +32,11 @@ from .cocoeval import KeypointEvaluator
 
 def _numpy(x) -> np.ndarray:
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _rows(n: int, count: Optional[int]) -> int:
+    """The first ``count`` rows of ``n`` (all when None)."""
+    return n if count is None else min(count, n)
 
 
 def _evaluate(coco: CocoAnnotations, result_list: list, verbose: bool
@@ -48,6 +58,8 @@ class SBPmAPCOCO:
     def reset_states(self):
         self.result_list = []
 
+    _extra_zero_joints = 0
+
     def _pack(self, joints: np.ndarray, img_id: int, cat_id: int):
         tmp_joints, tmp_confs = [], []
         for (x, y, conf) in joints:
@@ -57,6 +69,7 @@ class SBPmAPCOCO:
                 continue
             tmp_joints.extend([float(x), float(y), 1])
             tmp_confs.append(float(conf))
+        tmp_joints.extend([0] * (3 * self._extra_zero_joints))
         self.result_list.append({
             "image_id": int(img_id),
             "category_id": int(cat_id),
@@ -64,14 +77,16 @@ class SBPmAPCOCO:
             "score": float(sum(tmp_confs) / joints.shape[0]),
         })
 
-    def update_state(self, target: dict, y_pred: torch.Tensor) -> None:
+    def update_state(self, target: dict, y_pred: torch.Tensor,
+                     count: Optional[int] = None) -> None:
         """target: dict with 'bbox' [B,4], 'image_id' [B], 'category_id'
         [B]; y_pred: NCHW logits [B, K, H, W]."""
         joints = decode_sbp_fast(y_pred, int(self.input_size[1]),
                                  self.conf_threshold, True)
-        self.update_state_decoded(target, joints)
+        self.update_state_decoded(target, joints, count)
 
-    def update_state_decoded(self, target: dict, joints) -> None:
+    def update_state_decoded(self, target: dict, joints,
+                             count: Optional[int] = None) -> None:
         """Same, with joints [B, K, 3] already decoded (input-size
         coordinates), as the eval step returns them."""
         joints = _numpy(joints)
@@ -79,7 +94,7 @@ class SBPmAPCOCO:
         img_ids = np.asarray(target["image_id"])
         cat_ids = np.asarray(target["category_id"])
         in_h, in_w = self.input_size
-        for idx in range(joints.shape[0]):
+        for idx in range(_rows(joints.shape[0], count)):
             j = joints[idx].astype(np.float64).copy()
             j[:, 0] = j[:, 0] * (bbox[idx][2] / in_w) + bbox[idx][0]
             j[:, 1] = j[:, 1] * (bbox[idx][3] / in_h) + bbox[idx][1]
@@ -92,6 +107,14 @@ class SBPmAPCOCO:
         if not self.result_list:
             return 0.0
         return _evaluate(self.coco, self.result_list, verbose)
+
+
+class SBPmAPPIS(SBPmAPCOCO):
+    """11-keypoint PIS variant: 6 zero joints pad each result to the 17
+    COCO slots of the OKS evaluator (reference:
+    utils/sbp_pis_utils.py:40)."""
+
+    _extra_zero_joints = 6
 
 
 class SPMmAPCOCO:
@@ -110,22 +133,24 @@ class SPMmAPCOCO:
     def reset_states(self):
         self.result_list = []
 
-    def update_state(self, target: dict, y_pred: torch.Tensor) -> None:
+    def update_state(self, target: dict, y_pred: torch.Tensor,
+                     count: Optional[int] = None) -> None:
         """target: dict with 'image_size' [B,2] (w,h), 'image_id',
         'category_id'; y_pred: NCHW logits [B, 1+2K, S, S]."""
         decoded = decode_spm_batch(y_pred, self.input_size, self.sigma,
                                    self.conf_threshold, True,
                                    self.max_persons)
-        self.update_state_decoded(target, decoded)
+        self.update_state_decoded(target, decoded, count)
 
-    def update_state_decoded(self, target: dict, decoded) -> None:
+    def update_state_decoded(self, target: dict, decoded,
+                             count: Optional[int] = None) -> None:
         """decoded: (roots [B,M,3], keypoints [B,M,K,3]) in input pixels,
         as the eval step returns them."""
         roots_b, kps_b = (_numpy(x) for x in decoded)
         image_sizes = np.asarray(target["image_size"], np.float64)
         img_ids = np.asarray(target["image_id"])
         cat_ids = np.asarray(target["category_id"])
-        for idx in range(roots_b.shape[0]):
+        for idx in range(_rows(roots_b.shape[0], count)):
             keep = roots_b[idx, :, 2] >= 0
             kps = kps_b[idx][keep].astype(np.float64).copy()
             kps[..., 0] *= image_sizes[idx][0] / self.input_size

@@ -1,5 +1,5 @@
 from .convert import from_jax_variables, load_state_dict_file
-from .darknet import Darknet19
+from .darknet import Darknet19, Darknet19Classifier, darknet19
 from .initialize import lecun_normal_
 from .layers import ConvBn, ConvBnAct, ConvBnRelu, DeconvBnRelu
 from .sbp import SBP, PoseNet
@@ -11,11 +11,13 @@ __all__ = [
     "ConvBnAct",
     "ConvBnRelu",
     "Darknet19",
+    "Darknet19Classifier",
     "DeconvBnRelu",
     "PoseNet",
     "SBP",
     "SPM",
     "count_params",
+    "darknet19",
     "from_jax_variables",
     "lecun_normal_",
     "load_state_dict_file",

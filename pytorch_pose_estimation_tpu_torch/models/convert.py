@@ -5,7 +5,10 @@
 ``{'params', 'batch_stats'}`` trees (numpy leaves) of an SBP or an SPM to a
 state_dict with the reference's keys; the two differ only in the head's key
 (``sbp_head.0.weight`` or ``spm_head.0.weight``, both flax's
-``params['head']['kernel']``).  Conv kernels [kh, kw, I, O] and flax
+``params['head']['kernel']``).  The darknet19 classifier
+(``kind="classifier"``), whose stages sit at flax's top level beside
+``classifier``, maps to the reference's classifier layout
+(``stem.<pos>.*``, ``layer1..5.<pos>.*``, ``classifier.0.*``).  Conv kernels [kh, kw, I, O] and flax
 transpose-kernel deconv kernels [kh, kw, O, I] both become torch layout by
 the permutation (3, 2, 0, 1), the inverse of torch_import's (2, 3, 1, 0).
 BN scale/bias/mean/var map to weight/bias/running_mean/running_var.
@@ -48,12 +51,22 @@ def _bn(variables: Mapping, path, prefix: str, out: dict) -> None:
     out[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
 
+def _conv_bn(variables: Mapping, path, prefix: str, out: dict) -> None:
+    node = variables["params"]
+    for p in path:
+        node = node[p]
+    out[f"{prefix}.conv.weight"] = _kernel(node["conv"]["kernel"])
+    _bn(variables, path, f"{prefix}.bn", out)
+
+
 def from_jax_variables(variables: Mapping, kind: str = "sbp"
                        ) -> Dict[str, torch.Tensor]:
-    """{'params': ..., 'batch_stats': ...} of the JAX SBP or SPM (``kind``
-    'sbp' or 'spm') -> the port's state_dict of that model."""
-    if kind not in ("sbp", "spm"):
-        raise ValueError(f"kind must be 'sbp' or 'spm', got {kind!r}")
+    """{'params': ..., 'batch_stats': ...} of the JAX SBP, SPM or darknet19
+    classifier (``kind`` 'sbp', 'spm' or 'classifier') -> the port's
+    state_dict of that model."""
+    if kind not in ("sbp", "spm", "classifier"):
+        raise ValueError(f"kind must be 'sbp', 'spm' or 'classifier', got "
+                         f"{kind!r}")
     params = variables["params"]
     out: Dict[str, torch.Tensor] = {}
     for s, (name, table) in enumerate(zip(STAGE_NAMES, STAGES)):
@@ -61,12 +74,16 @@ def from_jax_variables(variables: Mapping, kind: str = "sbp"
         for pos, entry in enumerate(table):
             if entry == "M":
                 continue
-            path = ("backbone", name, f"conv{conv_i}")
-            prefix = f"backbone_features_module.{s}.{pos}"
-            out[f"{prefix}.conv.weight"] = _kernel(
-                params["backbone"][name][f"conv{conv_i}"]["conv"]["kernel"])
-            _bn(variables, path, f"{prefix}.bn", out)
+            if kind == "classifier":
+                _conv_bn(variables, (name, f"conv{conv_i}"),
+                         f"{name}.{pos}", out)
+            else:
+                _conv_bn(variables, ("backbone", name, f"conv{conv_i}"),
+                         f"backbone_features_module.{s}.{pos}", out)
             conv_i += 1
+    if kind == "classifier":
+        _conv_bn(variables, ("classifier",), "classifier.0", out)
+        return out
     for i in (1, 2, 3):
         name = f"deconv_{i}"
         out[f"{name}.0.weight"] = _kernel(params[name]["deconv"]["kernel"])

@@ -1,18 +1,20 @@
 """Profile a train step on one GPU at full width, seeded weights and
 seeded uint8 images already on the card: SBP (darknet19, 256x192 input,
-batch 256 by default) or SPM (512x512 input, 30 persons, batch 32 by
-default); bf16, sgd nesterov, device CLAHE:
+batch 256 by default), SPM (512x512 input, 30 persons, batch 32 by
+default; bf16, sgd nesterov, device CLAHE) or the darknet19 classifier
+(64x64 input, 200 classes, batch 256, bf16, sgd nesterov, dropout):
 
     python -m pytorch_pose_estimation_tpu_torch.profile_train_step \\
-        [--kind sbp|spm] [--batch N] [--steps 5]
+        [--kind sbp|spm|classifier] [--batch N] [--steps 5]
 
 Prints the card's name and power limit, the step time by host clock
 (synchronized, after warm-up), each part's device time by CUDA events
-(augment, targets, forward_backward, optimizer; the mean over the steps),
-the augmentation's and the targets' own parts timed alone the same way,
-then a ``torch.profiler`` trace of the same steps: the device's busy share
-of the window and the kernels with the most device time, and the same
-time grouped into kinds (convolution, matmul, elementwise, ...).
+(augment, targets, forward_backward, optimizer; the classifier's step has
+the last two; the mean over the steps), the augmentation's and the
+targets' own parts timed alone the same way, then a ``torch.profiler``
+trace of the same steps: the device's busy share of the window and the
+kernels with the most device time, and the same time grouped into kinds
+(convolution, matmul, elementwise, ...).
 """
 
 from __future__ import annotations
@@ -26,12 +28,12 @@ import numpy as np
 import torch
 
 from . import optim
+from .models.darknet import dropout_mask_shape
 from .ops import image
 from .ops import targets as target_ops
 from .train import build_model, make_sbp_steps, make_spm_steps
 from .train.steps import _spm_targets
-
-_PARTS = ("augment", "targets", "forward_backward", "optimizer")
+from .train_classifier import build_classifier, make_classifier_steps
 # kernel-name fragments -> kind, first match wins
 _KINDS = (("sbp_heatmaps", "K1"), ("decode_sbp", "K2"),
           ("implicit_gemm", "convolution"), ("convolve", "convolution"),
@@ -138,8 +140,33 @@ def spm_people(rng, n: int, size: int = 512, max_persons: int = 30):
     return joints, centers
 
 
+def _classifier_setup(b: int, rng):
+    """The classifier's step with the SBP steps' signature, its batch and
+    its parts (the dropout mask's draw)."""
+    model = build_classifier({"precision": "bf16", "seed": 0}, 200).cuda()
+    opt = optim.get_optimizer("sgd", list(model.parameters()), lr=0.1,
+                              momentum=0.9, weight_decay=5e-4, nesterov=True)
+    train_step, _ = make_classifier_steps(model, opt, 200)
+
+    def step(batch, gen, host_gen, marker=None):
+        return train_step(batch["image"], batch["label"], gen,
+                          marker=marker)
+
+    def parts(batch, gen, host_gen):
+        shape = dropout_mask_shape(b, 64, 64)
+        return {"dropout mask draw": _device_ms(
+            lambda: torch.rand(shape, generator=gen, device="cuda"))}
+
+    batch = {"image": rng.randint(0, 256, (b, 64, 64, 3), dtype=np.uint8),
+             "label": rng.randint(0, 200, b).astype(np.int32)}
+    return step, {k: torch.from_numpy(v).cuda()
+                  for k, v in batch.items()}, parts
+
+
 def _setup(kind: str, b: int, rng):
     """(step, batch on the card, parts timer) at full width."""
+    if kind == "classifier":
+        return _classifier_setup(b, rng)
     cfg = {"num_keypoints": 17, "precision": "bf16", "seed": 0}
     model = build_model(cfg, kind).cuda().train()
     opt = optim.get_optimizer("sgd", list(model.parameters()), lr=1e-3,
@@ -168,9 +195,11 @@ def _setup(kind: str, b: int, rng):
 
 def main(argv=None):
     parser = argparse.ArgumentParser()
-    parser.add_argument("--kind", choices=("sbp", "spm"), default="sbp")
+    parser.add_argument("--kind", choices=("sbp", "spm", "classifier"),
+                        default="sbp")
     parser.add_argument("--batch", type=int, default=None,
-                        help="default 256 for SBP, 32 for SPM")
+                        help="default 256 for SBP and the classifier, 32 "
+                             "for SPM")
     parser.add_argument("--steps", type=int, default=5)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -200,16 +229,18 @@ def main(argv=None):
     parts = defaultdict(float)
     for _ in range(args.steps):
         events = [torch.cuda.Event(enable_timing=True)]
+        names = []
         events[0].record()
 
-        def marker(name, events=events):
+        def marker(name, events=events, names=names):
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             events.append(ev)
+            names.append(name)
 
         step(batch, gen, host_gen, marker=marker)
         torch.cuda.synchronize()
-        for i, name in enumerate(_PARTS):
+        for i, name in enumerate(names):
             parts[name] += events[i].elapsed_time(events[i + 1])
     print("parts (CUDA events, mean): " + ", ".join(
         f"{k} {v / args.steps:.2f} ms" for k, v in parts.items()))

@@ -1,5 +1,5 @@
 from .checkpoint import (CheckpointManager, extract_backbone,
-                         load_pretrained, next_version_dir,
+                         load_backbone, load_pretrained, next_version_dir,
                          restore_checkpoint, restore_checkpoint_flexible,
                          save_checkpoint)
 from .state import TrainState
@@ -7,7 +7,8 @@ from .steps import (make_sbp_eval_step, make_sbp_steps, make_spm_eval_step,
                     make_spm_steps)
 from .trainer import (Trainer, apply_precision_config, build_metric,
                       build_model, load_for_inference, load_model,
-                      load_sbp_predictor, resolve_device, validate)
+                      load_sbp_predictor, resolve_device, to_device,
+                      validate)
 
 __all__ = [
     "CheckpointManager",
@@ -17,6 +18,7 @@ __all__ = [
     "build_metric",
     "build_model",
     "extract_backbone",
+    "load_backbone",
     "load_for_inference",
     "load_model",
     "load_pretrained",
@@ -30,5 +32,6 @@ __all__ = [
     "restore_checkpoint",
     "restore_checkpoint_flexible",
     "save_checkpoint",
+    "to_device",
     "validate",
 ]

@@ -13,7 +13,10 @@ included) and the same meta as the sidecar.
 Every file is written under a temporary name and then renamed with
 ``os.replace``, so a kill in the middle of a save leaves the previous file
 whole and only a ``*.tmp*`` file behind.  Weight surgery (the reference's
-saving_weights.py:22-42): ``extract_backbone`` and ``load_pretrained``.
+saving_weights.py:22-42): ``extract_backbone`` and ``load_pretrained``;
+``load_backbone`` overlays a backbone from either layout the framework
+makes (a pose model's ``backbone_features_module.*`` or the darknet19
+classifier's ``stem``, ``layer1`` .. ``layer5``).
 """
 
 from __future__ import annotations
@@ -25,7 +28,10 @@ from typing import Optional
 
 import torch
 
+from torch import nn
+
 from ..models import load_state_dict_file
+from ..models.darknet import STAGE_NAMES
 from .state import TrainState
 
 _BACKBONE = "backbone_features_module."
@@ -133,11 +139,45 @@ def extract_backbone(ckpt_path: str, out_path: str) -> str:
     return out_path
 
 
+def backbone_entries(state_dict: dict) -> dict:
+    """The backbone's entries of a state_dict in either layout, under the
+    pose models' keys: ``backbone_features_module.*`` as they are, and the
+    classifier's ``<stage>.<pos>.*`` as
+    ``backbone_features_module.<stage index>.<pos>.*``; the rest (heads,
+    deconvs, the classifier's head) is left out."""
+    out = {}
+    for k, v in state_dict.items():
+        stage, _, rest = k.partition(".")
+        if k.startswith(_BACKBONE):
+            out[k] = v
+        elif stage in STAGE_NAMES:
+            out[f"{_BACKBONE}{STAGE_NAMES.index(stage)}.{rest}"] = v
+    return out
+
+
+def _overlay(model: nn.Module, src: dict) -> int:
+    """Copy the entries of ``src`` whose keys ``model`` has; returns how
+    many."""
+    own = model.state_dict()
+    src = {k: v for k, v in src.items() if k in own}
+    own.update(src)
+    model.load_state_dict(own)
+    return len(src)
+
+
+def load_backbone(model: nn.Module, path: str) -> int:
+    """Overlay the backbone of the torch file ``path`` (a bare state_dict,
+    a Lightning checkpoint or a training checkpoint, in either layout of
+    ``backbone_entries``) onto ``model``'s; returns the number of tensors
+    copied.  Raises if the file holds no backbone."""
+    n = _overlay(model, backbone_entries(load_state_dict_file(path)))
+    if not n:
+        raise ValueError(f"{path} holds no darknet19 backbone weights")
+    return n
+
+
 def load_pretrained(state: TrainState, pretrained_path: str) -> None:
     """Overlay a partial state_dict (or a checkpoint's model state) onto
     the model where the keys match; other keys of either side are left
     alone (strict=False warm start, reference: train_sbp.py:44-46)."""
-    own = state.model.state_dict()
-    src = load_state_dict_file(pretrained_path)
-    own.update({k: v for k, v in src.items() if k in own})
-    state.model.load_state_dict(own)
+    _overlay(state.model, load_state_dict_file(pretrained_path))

@@ -1,10 +1,11 @@
-"""SBP and SPM training, serving and validation.
+"""SBP, PIS and SPM training, serving and validation.
 
 Counterpart of pytorch_pose_estimation_tpu/train/trainer.py:
 ``apply_precision_config``, ``build_model``, ``build_metric``,
 ``load_for_inference``, ``load_sbp_predictor``, ``validate`` and the
-``Trainer`` for SBP and SPM (``kind``), which reproduces the reference
-training contract (train_sbp.py:55-79):
+``Trainer`` for SBP, PIS (SBP with the config's 11 keypoints and the PIS
+metric) and SPM (``kind``), which reproduces the reference training
+contract (train_sbp.py:55-79):
 
 * validation every ``trainer_options.check_val_every_n_epoch`` epochs,
 * TensorBoard logs (train_loss / val_loss / val_mAP / lr-step) when
@@ -12,7 +13,8 @@ training contract (train_sbp.py:55-79):
 * checkpoints under ``saved/<model>_<dataset>/version_N/checkpoints`` with
   best-by-val_loss and last, resume and ``resume="auto"``,
 * early stopping on val_loss with patience 30 validation rounds,
-* an optional partial warm start from ``model_pretrained``.
+* an optional warm start of the backbone from ``backbone_pretrained``, then
+  an optional partial warm start from ``model_pretrained``.
 
 Each train step runs augmentation, targets (kernel K1 for SBP), forward,
 backward and the update on the device; the host loader prefetches the next
@@ -36,13 +38,13 @@ import torch
 from torch import nn
 
 from ..config import make_model_name
-from ..eval.metrics import SBPmAPCOCO, SPMmAPCOCO
+from ..eval.metrics import SBPmAPCOCO, SBPmAPPIS, SPMmAPCOCO
 from ..models import SBP, SPM, PoseNet, lecun_normal_, load_state_dict_file
 from ..models.summary import print_summary
 from ..ops.decode import decode_sbp_fast
 from ..ops.image import normalize_batch
 from ..optim import build_optimizer_from_cfg
-from .checkpoint import (CheckpointManager, load_pretrained,
+from .checkpoint import (CheckpointManager, load_backbone, load_pretrained,
                          next_version_dir, restore_checkpoint)
 from .state import TrainState
 from .steps import (make_sbp_eval_step, make_sbp_steps, make_spm_eval_step,
@@ -50,14 +52,17 @@ from .steps import (make_sbp_eval_step, make_sbp_steps, make_spm_eval_step,
 
 # the batch keys the train and eval steps read, per model kind
 _KEYS = {"sbp": ("image", "joints", "joints_vis"),
+         "pis": ("image", "joints", "joints_vis"),
          "spm": ("image", "joints", "centers")}
+# where backbone_pretrained='tiny-imagenet' looks, under the working
+# directory (reference: models/backbone/darknet.py:138-150)
+TINY_IMAGENET_CKPT = os.path.join("ckpt", "darknet19-tiny-imagenet.ckpt")
 
 
 def _check_kind(kind: str) -> str:
-    if kind == "pis":
-        raise ValueError("kind 'pis' is not ported yet")
     if kind not in _KEYS:
-        raise ValueError(f"kind must be 'sbp' or 'spm', got {kind!r}")
+        raise ValueError(f"kind must be 'sbp', 'pis' or 'spm', got "
+                         f"{kind!r}")
     return kind
 
 
@@ -69,6 +74,15 @@ def resolve_device(device) -> torch.device:
             "CUDA is not available: the port runs on the GPU by default; "
             "pass device='cpu' to run on the CPU")
     return device
+
+
+def to_device(array, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``; on the card the copy leaves
+    from pinned memory and does not wait for the device."""
+    t = torch.from_numpy(np.asarray(array))
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 def apply_precision_config(cfg: dict) -> str:
@@ -86,9 +100,10 @@ def apply_precision_config(cfg: dict) -> str:
 
 
 def build_model(cfg: dict, kind: str = "sbp") -> PoseNet:
-    """SBP or SPM (``kind``) at the configured precision, with
-    ``cfg['remat']``, initialized like the JAX package (lecun_normal) from a
-    generator seeded with ``cfg['seed']`` (0)."""
+    """SBP (``kind`` 'sbp' or 'pis') or SPM at the configured precision,
+    with ``cfg['num_keypoints']`` and ``cfg['remat']``, initialized like
+    the JAX package (lecun_normal) from a generator seeded with
+    ``cfg['seed']`` (0)."""
     cls = SPM if _check_kind(kind) == "spm" else SBP
     precision = apply_precision_config(cfg)
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
@@ -114,8 +129,8 @@ def build_metric(cfg: dict, kind: str = "sbp"):
     if _check_kind(kind) == "spm":
         return SPMmAPCOCO(cfg["val_path"], cfg["input_size"], cfg["sigma"],
                           cfg["conf_threshold"], cfg.get("max_persons", 30))
-    return SBPmAPCOCO(cfg["val_path"], cfg["input_size"],
-                      cfg["conf_threshold"])
+    cls = SBPmAPPIS if kind == "pis" else SBPmAPCOCO
+    return cls(cfg["val_path"], cfg["input_size"], cfg["conf_threshold"])
 
 
 def _images(images, device: torch.device) -> torch.Tensor:
@@ -204,11 +219,11 @@ def validate(cfg: dict, data_module, model: nn.Module, device="cuda",
 
 
 class Trainer:
-    """SBP or SPM (``kind``) training on one device (``device="cuda"``
-    by default; raises without CUDA).  ``data_module`` gives
-    ``train_loader()`` (with ``set_epoch``), ``val_loader()`` and
-    ``val_db``.  ``step`` and the
-    epoch counter continue across a resume."""
+    """SBP, PIS or SPM (``kind``) training on one device
+    (``device="cuda"`` by default; raises without CUDA).  ``data_module``
+    gives ``train_loader()`` (with ``set_epoch``), ``val_loader()`` and
+    ``val_db``.  ``step`` and the epoch counter continue across a
+    resume."""
 
     def __init__(self, cfg: dict, data_module, kind: str = "sbp",
                  logging: bool = True, device="cuda"):
@@ -250,6 +265,8 @@ class Trainer:
                 float(cfg["sigma"]), float(cfg["conf_threshold"]),
                 augment=augment)
 
+        self._warm_start_backbone(cfg.get("backbone_pretrained"))
+
         if cfg.get("model_pretrained"):
             path = cfg["model_pretrained"]
             if os.path.exists(path):
@@ -285,6 +302,40 @@ class Trainer:
     def model(self) -> nn.Module:
         return self.state.model
 
+    def _warm_start_backbone(self, bp) -> None:
+        """Overlay the backbone from ``backbone_pretrained`` (JAX:
+        ``Trainer._warm_start_backbone``):
+
+        * 'tiny-imagenet': the reference's classifier checkpoint at
+          ``<cwd>/ckpt/darknet19-tiny-imagenet.ckpt`` (Lightning or bare,
+          in the reference's classifier layout); a missing file is
+          reported and skipped, as in JAX;
+        * a path to a file: a checkpoint of ``train_classifier``, or any
+          torch file of a classifier or pose model (``load_backbone``);
+        * anything else: reported and skipped.
+
+        The JAX package's orbax directories are not read here (the orbax
+        reader is a ROADMAP item): a directory raises."""
+        if not bp:
+            return
+        if bp == "tiny-imagenet":
+            path = os.path.join(os.getcwd(), TINY_IMAGENET_CKPT)
+            if not os.path.exists(path):
+                print(f"backbone_pretrained ckpt not found: {path}")
+                return
+        elif os.path.isdir(bp):
+            raise ValueError(
+                f"backbone_pretrained {bp} is a directory (an orbax "
+                f"checkpoint of the JAX package?); the port reads torch "
+                f"files only")
+        elif os.path.isfile(bp):
+            path = bp
+        else:
+            print(f"backbone_pretrained not found, skipping: {bp}")
+            return
+        n = load_backbone(self.model, path)
+        print(f"backbone warm-started from {path} ({n} tensors)")
+
     # ------------------------------------------------------------------
     def summary(self):
         size = self.cfg["input_size"]
@@ -296,15 +347,8 @@ class Trainer:
             self.writer.add_scalar(tag, value, step)
 
     def _device_batch(self, batch: dict, keys: Sequence[str]) -> dict:
-        """numpy batch -> tensors on the device; on the card the copy
-        leaves from pinned memory and does not wait for the device."""
-        out = {}
-        for k in keys:
-            t = torch.from_numpy(np.asarray(batch[k]))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out[k] = t
-        return out
+        """numpy batch -> tensors on the device (``to_device``)."""
+        return {k: to_device(batch[k], self.device) for k in keys}
 
     def _profile(self):
         """Start or stop the torch.profiler trace at the window's edges."""

@@ -1,9 +1,10 @@
 """The port stands alone: importing any of its modules (and chip_smoke.py)
 loads no jax and nothing of the JAX package, and needs neither cv2, PyYAML
-nor tensorboardX; its entry points (the Trainer, ``load_for_inference``
-and the train and inference modules among them) default to the GPU and
-raise without one; the kernel module
-imports without nvcc and fails clearly when asked to build without it."""
+nor tensorboardX; its entry points (the Trainer, ``load_for_inference``,
+the train and inference modules, the PIS harnesses and
+``train_classifier`` among them) default to the GPU and raise without
+one; the kernel module imports without nvcc and fails clearly when asked
+to build without it."""
 
 import os
 import subprocess
@@ -93,6 +94,45 @@ def test_spm_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
              lambda: train_spm.train(cfg),
              lambda: inference_spm.inference(cfg, None,
                                              str(tmp_path / "out"))]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert not (tmp_path / "saved").exists()  # nothing written first
+    assert not (tmp_path / "out").exists()
+
+
+def test_pis_and_classifier_entry_points_default_to_cuda_and_raise(
+        tmp_path):
+    """``Trainer(kind="pis")``, ``train_sbp_pis``, ``inference_sbp_pis``,
+    both behaviour harnesses and ``train_classifier``: each raises before
+    it writes anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from pytorch_pose_estimation_tpu_torch import (inference_sbp_pis,
+                                                   pis_falling_down_test_code,
+                                                   pis_handle_test_code,
+                                                   train_classifier,
+                                                   train_sbp_pis)
+    from pytorch_pose_estimation_tpu_torch.train import Trainer
+    none = str(tmp_path / "none.json")
+    cfg = {"model": "simple-baselines-pose", "dataset_name": "pis",
+           "train_path": none, "val_path": none, "input_size": [64, 48],
+           "output_size": [16, 12], "num_keypoints": 11, "sigma": 2,
+           "conf_threshold": 0.25, "workers": 0, "batch_size": 2,
+           "class_labels": [], "epochs": 1, "optimizer": "sgd",
+           "save_dir": str(tmp_path / "saved")}
+    cls_cfg = {"model": "darknet19", "dataset_name": "tiny-imagenet",
+               "input_size": 64, "train_dir": str(tmp_path),
+               "val_dir": str(tmp_path), "workers": 0, "batch_size": 2,
+               "epochs": 1, "optimizer": "sgd",
+               "save_dir": str(tmp_path / "saved")}
+    calls = [lambda: Trainer(cfg, None, kind="pis"),
+             lambda: train_sbp_pis.train(cfg),
+             lambda: inference_sbp_pis.inference(cfg, None, "handle_grip",
+                                                 str(tmp_path / "out")),
+             lambda: pis_handle_test_code.run(cfg, None),
+             lambda: pis_falling_down_test_code.run(cfg, None),
+             lambda: train_classifier.train(cls_cfg)]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

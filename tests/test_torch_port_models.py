@@ -30,9 +30,11 @@ def _to_np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def calibrated_jax_variables(x=None, seed=0, kind="sbp", input_hw=INPUT_HW):
-    """A seeded flax SBP (or SPM, ``kind``) init whose BN running
-    statistics are then set to the batch statistics of ``x`` (NCHW fp32;
+def calibrated_jax_variables(x=None, seed=0, kind="sbp", input_hw=INPUT_HW,
+                             num_keypoints=17):
+    """A seeded flax SBP (or SPM, ``kind``) init of ``num_keypoints``
+    joints whose BN running statistics are then set to the batch
+    statistics of ``x`` (NCHW fp32;
     default a seeded uniform batch at ``input_hw``), so that eval-mode
     activations stay O(1) through the 22 blocks (with the init's mean 0 /
     var 1 they shrink to ~1e-5 at the logits, where every comparison is
@@ -40,10 +42,10 @@ def calibrated_jax_variables(x=None, seed=0, kind="sbp", input_hw=INPUT_HW):
     (momentum 1) and carried back through the JAX package's own
     importer."""
     jax_cls, port_cls = (JaxSPM, SPM) if kind == "spm" else (JaxSBP, SBP)
-    model = jax_cls(num_keypoints=17)
+    model = jax_cls(num_keypoints=num_keypoints)
     variables = _to_np(model.init(jax.random.PRNGKey(seed),
                                   jnp.zeros((1,) + tuple(input_hw) + (3,))))
-    port = port_cls(17)
+    port = port_cls(num_keypoints)
     port.load_state_dict(from_jax_variables(variables, kind))
     for m in port.modules():
         if isinstance(m, torch.nn.BatchNorm2d):

@@ -387,5 +387,5 @@ def test_spm_trainer_fit_resume_validate_and_cli(synth, tmp_path, capsys,
     got = test_spm.main(["--cfg", str(path), "--ckpt", last,
                          "--device", "cpu"])
     np.testing.assert_allclose(got, (val_loss, val_map), rtol=1e-6)
-    with pytest.raises(ValueError, match="not ported yet"):
-        Trainer(cfg, dm, kind="pis", logging=False, device="cpu")
+    with pytest.raises(ValueError, match="'sbp', 'pis' or 'spm'"):
+        Trainer(cfg, dm, kind="hourglass", logging=False, device="cpu")
