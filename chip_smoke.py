@@ -76,20 +76,43 @@ non-zero, printing no result:
    dropout mask; 30 steps on a fixed batch with dropout (the loss must
    fall); an SBP ``Trainer`` whose ``backbone_pretrained`` is the
    classifier's ``last`` (all 18 convs and their BN equal); no kernel may
-   launch in it.
+   launch in it;
+10. the device cache and the native loader, from JPEG files on disk
+   (``tests/synth_fixture.py``, which needs cv2): a. build the port's
+   native loader with g++ and say whether it built (the first line of
+   g++'s error if not); b. ``build_device_cache`` of 800 train images
+   (about 1,600 SBP instances at 256x192, about 236 MB, 6 steps an epoch at
+   batch 256): its time, bytes and memo, then again from the memo alone
+   (the decoder broken), equal arrays on the card; c. ``Trainer.fit`` at
+   phase 6's config with ``cache_device: True`` and no ``clahe`` key, 2
+   epochs with validation on 32 val images: CLAHE moved to the device,
+   epoch 0 fed the cache's rows at ``epoch_indices(0)``, K1 once per train
+   and eval step, K2 once per eval step, finite losses, each epoch's
+   img/s; d. the streaming fit, one epoch, with cv2 and (if 10a built)
+   the native loader, their img/s beside the loader's alone, and the two
+   decoders' pixels on one val batch (mean difference under 2 levels); e.
+   SPM with ``cache_device`` at
+   512x512, batch 32, 64 images, one epoch: the memo holds image, joints
+   and centers, and no kernel launches.
 
 The last three lines of standard output: the card's name and power limit,
-one JSON object describing each kernel (launches summed over phases 4-9),
+one JSON object describing each kernel (launches summed over phases 4-10),
 and ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
 ...}}``.  The configs are written inline with the values of
 configs/sbp_coco.yaml, spm_coco.yaml, sbp_pis.yaml and
-darknet19_classifier.yaml, so neither PyYAML nor cv2 is needed.  Imports
-nothing of JAX.
+darknet19_classifier.yaml, so PyYAML is not needed; phases 1-9 make their
+data in memory, phase 10 writes JPEG files with cv2.  Imports nothing of
+JAX.
 """
 
+import contextlib
+import importlib.util
+import io
 import json
 import os
+import re
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -101,7 +124,10 @@ from pytorch_pose_estimation_tpu_torch import (optim,
                                                pis_handle_test_code,
                                                saving_weights,
                                                train_classifier)
-from pytorch_pose_estimation_tpu_torch.data import HostLoader
+from pytorch_pose_estimation_tpu_torch.data import (HostLoader,
+                                                    SBPCOCODataModule,
+                                                    SPMCOCODataModule,
+                                                    native_loader)
 from pytorch_pose_estimation_tpu_torch.eval import SBPmAPCOCO, SBPmAPPIS
 from pytorch_pose_estimation_tpu_torch.models import (count_params,
                                                       load_state_dict_file)
@@ -117,7 +143,9 @@ from pytorch_pose_estimation_tpu_torch.pis import (HANDLE_ROI, NEG_MAX,
                                                    POS_MIN, FallingDown,
                                                    HandleGrip)
 from pytorch_pose_estimation_tpu_torch.profile_train_step import spm_people
-from pytorch_pose_estimation_tpu_torch.train import (Trainer, build_model,
+from pytorch_pose_estimation_tpu_torch.train import (Trainer,
+                                                     build_device_cache,
+                                                     build_model,
                                                      load_for_inference,
                                                      load_model,
                                                      load_sbp_predictor,
@@ -1441,6 +1469,265 @@ def phase_classifier(tmp, rng):
           f"a kernel launched on the classifier path: {launches}")
 
 
+# --------------------------------------------------------------------------
+# phase 10: the device cache and the native loader, from JPEG files
+# --------------------------------------------------------------------------
+
+CACHE_TRAIN, CACHE_VAL = 800, 32  # images: about 1,600 and 64 instances
+SPM_CACHE_IMAGES = 64
+EPOCH_LINE = re.compile(r"epoch (\d+): train_loss=\S+ \(([\d.]+) img/s\)")
+SYNTH_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "synth_fixture.py")
+
+
+def _synth_fixture():
+    """This checkout's tests/synth_fixture.py (it imports cv2), loaded by
+    its path: the script runs phase 10 from a temporary directory."""
+    spec = importlib.util.spec_from_file_location("synth_fixture",
+                                                  SYNTH_FIXTURE)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class _Tee(io.TextIOBase):
+    """Standard output, also kept in ``text`` (the Trainer's epoch lines
+    carry its img/s)."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _fit_printing(trainer, **kwargs):
+    """``trainer.fit(**kwargs)``; returns the img/s of each epoch line."""
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        trainer.fit(**kwargs)
+    return [float(m.group(2)) for m in EPOCH_LINE.finditer("".join(tee.text))]
+
+
+def phase_native_build():
+    """10a: build the port's native loader (g++, libjpeg) and say whether
+    it built."""
+    t0 = time.perf_counter()
+    ok = native_loader.available()
+    if ok:
+        print(f"native loader: built by g++ and loaded in "
+              f"{time.perf_counter() - t0:.2f} s")
+    else:
+        # the error is "...failed:", "$ <the g++ command>", then g++'s text
+        lines = native_loader.build_error().strip().splitlines()
+        text = [ln for ln in lines[2:] if ln.strip()] or lines
+        print(f"native loader: NOT built: {text[0]}")
+    return ok
+
+
+def _sbp_data(root, cfg, use_native=None):
+    dm = SBPCOCODataModule(
+        cfg["train_path"], cfg["val_path"], cfg["input_size"],
+        cfg["output_size"], K, cfg["sigma"], cfg["workers"],
+        cfg["batch_size"], cfg["class_labels"], img_dir=root,
+        use_native=use_native)
+    dm.setup()
+    return dm
+
+
+def phase_cache_build(root, cfg):
+    """10b: ``build_device_cache`` of the train set (val semantics), its
+    time, bytes and memo; then again with the decoder broken: the memo
+    must give the same arrays, on the card."""
+    dm = _sbp_data(root, cfg)
+    memo = cfg["train_path"] + ".devcache"
+    b = cfg["batch_size"]
+    t0 = time.perf_counter()
+    cache = build_device_cache(dm, b, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"cache: {len(dm.train_db)} instances of {CACHE_TRAIN} JPEG "
+          f"images decoded ({'native' if dm.use_native else 'cv2'}, "
+          f"{dm.workers} threads), stacked and uploaded in {dt:.2f} s; "
+          f"{cache.nbytes() / 1e6:.1f} MB on the card, "
+          f"{cache.steps_per_epoch} steps an epoch; memo {memo} "
+          f"({sorted(os.listdir(memo))})")
+    again_dm = _sbp_data(root, cfg)
+    again_dm._loader = None  # a decode would raise
+    t0 = time.perf_counter()
+    again = build_device_cache(again_dm, b, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    same = all(torch.equal(cache._data[k], again._data[k])
+               for k in cache._data)
+    on_card = all(t.is_cuda for c in (cache, again)
+                  for t in c._data.values())
+    print(f"cache: rebuilt from the memo alone in {dt:.2f} s: arrays equal "
+          f"{same}, on the card {on_card}")
+    check(same and on_card and cache.n_total == len(dm.train_db) and
+          cache.steps_per_epoch == len(dm.train_db) // b,
+          "cache: the memo did not give back the decoded arrays on the card")
+
+
+def phase_cached_fit(root, cfg):
+    """10c: ``Trainer.fit`` with ``cache_device: True`` and no ``clahe``
+    key, 2 epochs with validation: CLAHE moved to the device, epoch 0's
+    batches are the cache's rows at ``epoch_indices(0)``, K1 once per
+    train and eval step and K2 once per eval step, finite losses.  Returns
+    the launches and the epochs' img/s."""
+    dm = _sbp_data(root, cfg)
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    trainer = Trainer(cfg, dm)
+    check(dm.clahe_prob == 0.0 and trainer.augment.get("clahe_prob") == 0.5,
+          f"cached fit: host CLAHE {dm.clahe_prob}, device CLAHE "
+          f"{trainer.augment}")
+    fed, losses = [], []
+    step = trainer.train_step
+
+    def recording(batch, *args, **kwargs):
+        fed.append(batch)
+        loss = step(batch, *args, **kwargs)
+        losses.append(loss)
+        return loss
+
+    trainer.train_step = recording
+    rates = _fit_printing(trainer)
+    launches = _counts()
+    cache = trainer._device_cache
+    idx = torch.from_numpy(cache.epoch_indices(0).astype(np.int64)).cuda()
+    same = all(torch.equal(fed[s][k], cache._data[k].index_select(0, idx[s]))
+               for s in range(cache.steps_per_epoch) for k in fed[s])
+    losses = torch.stack(losses).float().cpu()
+    steps = 2 * cache.steps_per_epoch
+    eval_steps = 2  # one val batch of 64 instances per validation
+    print(f"cached fit: host CLAHE p={dm.clahe_prob}, device CLAHE "
+          f"p={trainer.augment['clahe_prob']}; {len(fed)} steps, epoch 0 "
+          f"fed the cache's rows at epoch_indices(0): {same}; losses "
+          f"{float(losses[0]):.4f} ... {float(losses[-1]):.4f}; launches "
+          f"{launches}; epochs {rates} img/s")
+    check(same and len(fed) == steps and len(rates) == 2,
+          "cached fit: the fed batches are not the cache's epoch 0 rows")
+    check(bool(torch.isfinite(losses).all()), "cached fit: non-finite loss")
+    check(launches == {"sbp_heatmaps_cuda": steps + eval_steps,
+                       "decode_sbp_cuda": eval_steps},
+          f"cached fit: launches {launches} for {steps} train and "
+          f"{eval_steps} eval steps")
+    return launches, rates
+
+
+def phase_stream_fit(root, cfg, native_ok):
+    """10d: the streaming fit (host loader, the config's host CLAHE), one
+    epoch without validation, with cv2 and, when 10a built, the native
+    loader, each beside its loader's rate alone (one epoch, no step);
+    then the native and cv2 pixels of one val batch.  Returns the
+    launches."""
+    total = {name: 0 for name in _counts()}
+    feeds = [("cv2", False)] + ([("native", True)] if native_ok else [])
+    if not native_ok:
+        print("stream fit: native arm skipped (10a: the loader did not "
+              "build)")
+    cfg = dict(cfg, cache_device=False, epochs=1,
+               trainer_options={"check_val_every_n_epoch": 10,
+                                "num_sanity_val_steps": 0})
+    for name, use_native in feeds:
+        dm = _sbp_data(root, cfg, use_native)
+        t0 = time.perf_counter()
+        n = sum(len(b["image"]) for b in dm.train_loader())
+        feed = n / (time.perf_counter() - t0)
+        before = _counts()
+        trainer = Trainer(cfg, dm, logging=False)
+        rates = _fit_printing(trainer)
+        delta = _delta(before)
+        print(f"stream fit ({name}, {dm.workers} threads, host CLAHE "
+              f"p={dm.clahe_prob}): {rates} img/s; the loader alone (no "
+              f"train step, one epoch) {feed:.1f} img/s; launches {delta}")
+        steps = len(dm.train_db) // dm.batch_size
+        check(len(rates) == 1 and delta == {"sbp_heatmaps_cuda": steps,
+                                            "decode_sbp_cuda": 0},
+              f"stream fit ({name}): launches {delta} for {steps} steps")
+        for k, n in delta.items():
+            total[k] += n
+        del trainer
+    if native_ok:
+        a = next(iter(_sbp_data(root, cfg, True).val_loader()))["image"]
+        b = next(iter(_sbp_data(root, cfg, False).val_loader()))["image"]
+        diff = np.abs(a.astype(np.int16) - b.astype(np.int16))
+        print(f"native vs cv2, one val batch {a.shape}: mean abs "
+              f"difference {diff.mean():.4f}, max {int(diff.max())} levels")
+        check(diff.mean() < 2.0, "native and cv2 pixels differ by 2 levels "
+              "or more on average")
+    return total
+
+
+def phase_spm_cached(tmp, synth):
+    """10e: SPM with ``cache_device`` at spm_coco.yaml's widths (512x512,
+    batch 32) on 64 JPEG images, one epoch with validation: the memo holds
+    image, joints and centers; no kernel launches."""
+    root = os.path.join(tmp, "spm_jpeg")
+    train = synth.make_dataset(root, "train2017", SPM_CACHE_IMAGES, seed=12)
+    val = synth.make_dataset(root, "val2017", 8, seed=13)
+    labels = synth.COCO_KP_NAMES
+    cfg = dict(SPM_CFG, train_path=train, val_path=val, img_dir=root,
+               workers=8, class_labels=labels, cache_device=True,
+               save_dir=os.path.join(tmp, "saved_spm_cache"))
+    cfg.pop("clahe")
+    dm = SPMCOCODataModule(train, val, root, S_IN, S_OUT, K, 1, 8, S_B,
+                           labels, max_persons=S_P)
+    dm.setup()
+    before = _counts()
+    trainer = Trainer(cfg, dm, kind="spm")
+    losses = []
+    trainer.train_step = _recording(trainer.train_step, losses)
+    rates = _fit_printing(trainer)
+    delta = _delta(before)
+    with open(os.path.join(train + ".devcache", "meta.json")) as f:
+        meta = json.load(f)
+    cache = trainer._device_cache
+    print(f"spm cached fit: {cache.n_total} images, {cache.nbytes() / 1e6:.1f}"
+          f" MB on the card, memo keys {meta['keys']}, {len(losses)} steps, "
+          f"{rates} img/s, launches {delta}")
+    check(meta["keys"] == ["centers", "image", "joints"] and
+          all(t.is_cuda for t in cache._data.values()),
+          f"spm cached fit: memo {meta}")
+    check(len(losses) == SPM_CACHE_IMAGES // S_B and bool(
+        torch.isfinite(torch.stack(losses)).all()),
+          "spm cached fit: steps or losses")
+    check(all(n == 0 for n in delta.values()),
+          f"spm cached fit: a kernel launched: {delta}")
+
+
+def phase_cache(tmp):
+    """Phase 10 (see the module docstring).  Returns the launches of K1
+    and K2 over the phase."""
+    start = time.perf_counter()
+    synth = _synth_fixture()
+    native_ok = phase_native_build()
+    root = os.path.join(tmp, "jpeg")
+    t0 = time.perf_counter()
+    train = synth.make_dataset(root, "train2017", CACHE_TRAIN, seed=10)
+    val = synth.make_dataset(root, "val2017", CACHE_VAL, seed=11)
+    print(f"corpus: {CACHE_TRAIN} train and {CACHE_VAL} val JPEG images "
+          f"(320x400, 1-3 persons) written in {time.perf_counter() - t0:.1f}"
+          f" s")
+    cfg = {k: v for k, v in TRAIN_CFG.items() if k != "clahe"}
+    cfg.update(train_path=train, val_path=val, img_dir=root, workers=8,
+               class_labels=synth.COCO_KP_NAMES, cache_device=True, epochs=2,
+               save_dir=os.path.join(tmp, "saved_cache"))
+    phase_cache_build(root, cfg)
+    launches, cached = phase_cached_fit(root, cfg)
+    for k, n in phase_stream_fit(root, cfg, native_ok).items():
+        launches[k] += n
+    phase_spm_cached(tmp, synth)
+    print(f"cache launches (phase 10): {launches}; cached fit epochs "
+          f"{cached} img/s; phase 10 took {time.perf_counter() - start:.1f} s")
+    return launches
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -1477,8 +1764,10 @@ def main():
             for name, n in phase_pis(sbp_last, rng, tmp).items():
                 launches[name] += n
             phase_classifier(tmp, rng)
-            print(f"launches over phases 4-9 (SBP serve, eval and fit; "
-                  f"SPM; PIS; classifier): {launches}")
+            for name, n in phase_cache(tmp).items():
+                launches[name] += n
+            print(f"launches over phases 4-10 (SBP serve, eval and fit; "
+                  f"SPM; PIS; classifier; cache): {launches}")
         finally:
             os.chdir(cwd)
 

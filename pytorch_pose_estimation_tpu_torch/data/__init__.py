@@ -1,8 +1,10 @@
 """Host data layer: COCO annotation index, the SBP instance DB (and its
 PIS variant with absolute paths), the SPM image DB, the ImageFolder
-classification data and their threaded train and val loaders.
-Augmentation and targets run on the device (``ops/``)."""
+classification data and their threaded train and val loaders (cv2, or the
+native C++ JPEG loader, ``native_loader``).  Augmentation and targets run
+on the device (``ops/``)."""
 
+from . import native_loader
 from .classifier_dataset import ImageFolderDataModule
 from .coco import COCO_KPT_SIGMAS, CocoAnnotations
 from .pipeline import HostLoader, collate, pad_batch
@@ -21,5 +23,6 @@ __all__ = [
     "collate",
     "load_sbp_instance_db",
     "load_spm_image_db",
+    "native_loader",
     "pad_batch",
 ]

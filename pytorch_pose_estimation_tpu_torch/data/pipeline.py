@@ -3,13 +3,14 @@
 Counterpart of pytorch_pose_estimation_tpu/data/pipeline.py (``collate``,
 ``pad_batch``, ``HostLoader``): a thread pool builds samples and one
 background thread prefetches batches while the device runs.  cv2 releases
-the GIL, so threads parallelize the decode work.
+the GIL, so threads parallelize the decode work.  With a ``batch_fn`` (the
+native loader's path) one call builds the whole batch on the C++ thread
+pool, and there is no Python thread pool.
 
 Determinism, as in the JAX package: ``shuffle`` permutes the records with
 ``np.random.RandomState((seed * 1000003 + epoch) % 2**32)``, so both
 packages' loaders yield the same instances in the same order for a seed and
-an epoch.  The native whole-batch path (``batch_fn``) and the per-process
-shards come with the slices that use them.
+an epoch.  The per-process shards come with the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
@@ -52,13 +53,19 @@ def pad_batch(batch: dict, size: int) -> dict:
 class HostLoader:
     """Iterable batch loader over a record list;
     ``sample_fn(record, index, epoch) -> dict of arrays`` builds one
-    sample (``index`` is the record's position in ``db``)."""
+    sample (``index`` is the record's position in ``db``), or
+    ``batch_fn(records, indices, epoch) -> batch dict`` builds a whole
+    batch."""
 
-    def __init__(self, db: Sequence, sample_fn: Callable, batch_size: int,
-                 shuffle: bool = False, seed: int = 0,
-                 drop_last: bool = False, workers: int = 0):
+    def __init__(self, db: Sequence, sample_fn: Optional[Callable],
+                 batch_size: int, shuffle: bool = False, seed: int = 0,
+                 drop_last: bool = False, workers: int = 0,
+                 batch_fn: Optional[Callable] = None):
+        if sample_fn is None and batch_fn is None:
+            raise ValueError("HostLoader needs a sample_fn or a batch_fn")
         self.db = db
         self.sample_fn = sample_fn
+        self.batch_fn = batch_fn
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.seed = int(seed or 0)
@@ -93,6 +100,8 @@ class HostLoader:
         return -(-len(self.db) // self.batch_size)
 
     def _build(self, chunk: np.ndarray, epoch: int, pool) -> dict:
+        if self.batch_fn is not None:
+            return self.batch_fn([self.db[i] for i in chunk], chunk, epoch)
         args = [(self.db[i], int(i), epoch) for i in chunk]
         if pool is not None:
             return collate(list(pool.map(lambda a: self.sample_fn(*a),
@@ -105,7 +114,8 @@ class HostLoader:
         if not batches:
             return iter(())
 
-        pool = ThreadPoolExecutor(self.workers) if self.workers > 1 else None
+        pool = ThreadPoolExecutor(self.workers) if self.workers > 1 and \
+            self.batch_fn is None else None
         q: "queue.Queue" = queue.Queue(maxsize=_PREFETCH)
         _SENTINEL = object()
         abandoned = threading.Event()

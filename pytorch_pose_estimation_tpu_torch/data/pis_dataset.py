@@ -3,7 +3,9 @@ on an 11-keypoint upper-body dataset whose annotation ``file_name`` fields
 are already absolute paths, so no ``img_dir`` is joined (reference:
 dataset/sbp_pis_dataset.py:18-185, the paths at :156).
 
-Counterpart of pytorch_pose_estimation_tpu/data/pis_dataset.py.
+Counterpart of pytorch_pose_estimation_tpu/data/pis_dataset.py.  The
+loaders are SBP's: the native loader or cv2 by ``use_native`` (None = the
+native loader when it is available), with the host CLAHE per sample.
 """
 
 from __future__ import annotations

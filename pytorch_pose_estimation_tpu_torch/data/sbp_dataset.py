@@ -1,14 +1,18 @@
 """SBP (top-down, one sample per person instance) COCO data layer.
 
-Counterpart of pytorch_pose_estimation_tpu/data/sbp_dataset.py with the
-cv2 loader: the host decodes the JPEG, crops the clean GT bbox, resizes it
-to the model input and ships uint8 pixels plus joint metadata; the random
-augmentation and the targets run on the device (``ops/``).  The optional
-host CLAHE on train crops is Albumentations' (LAB L channel, clip limit
-uniform in [1, 4], p=0.5 per sample), drawn from a RandomState seeded by
-(seed, epoch, index) as in the JAX package.  cv2 is imported where an
-image is read, so the package imports without it.  The native C++ loader
-comes with its own slice.
+Counterpart of pytorch_pose_estimation_tpu/data/sbp_dataset.py: the host
+decodes the JPEG, crops the clean GT bbox, resizes it to the model input
+and ships uint8 pixels plus joint metadata; the random augmentation and
+the targets run on the device (``ops/``).  Two decoders, chosen by
+``use_native`` as in the JAX package: the native C++ loader
+(``native_loader``: one call decodes, crops and resizes a whole batch on a
+C++ thread pool) when it is available and ``use_native`` is None or True,
+else cv2 per sample.  The two agree to a mean absolute difference under 2
+levels, not exactly.  The optional host CLAHE on train crops is
+Albumentations' (LAB L channel, clip limit uniform in [1, 4], p=0.5 per
+sample), drawn from a RandomState seeded by (seed, epoch, index) as in the
+JAX package, on either path.  cv2 is imported where it is used, so the
+package imports without it.
 
 Annotation sanitization follows the reference rule for rule (reference:
 dataset/sbp_coco_dataset.py:97-169):
@@ -21,12 +25,13 @@ dataset/sbp_coco_dataset.py:97-169):
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from . import native_loader
 from .coco import CocoAnnotations
-from .pipeline import HostLoader
+from .pipeline import HostLoader, collate
 
 
 def coco_img_dir(img_dir: str, ann_path: str) -> str:
@@ -130,13 +135,111 @@ def _sample_rng(seed: int, epoch: int, index: int) -> np.random.RandomState:
         ((seed + 1) * 2654435761 + epoch * 1000003 + index) % (2 ** 32))
 
 
-class SBPCOCODataModule:
+class _ImageLoaders:
+    """The train and val loaders of an image data module (SBP, PIS, SPM),
+    cv2 per sample or native per batch (``use_native``), with the optional
+    host CLAHE on train images and the opt-in ``cache_images``.  A subclass
+    gives ``_load(rec)`` (cv2), ``_box(rec)`` (the native crop box),
+    ``_native_hw()``, ``_metadata(rec)`` and ``_image_cache``."""
+
+    @property
+    def use_native(self) -> bool:
+        """None = the native loader when it is available, True = the native
+        loader (raises with its build error when it is not), False = cv2.
+        Resolved where it is read (the first loader), so that building a
+        data module compiles nothing."""
+        return native_loader.resolve_use_native(self._use_native)
+
+    @use_native.setter
+    def use_native(self, value: Optional[bool]) -> None:
+        self._use_native = value
+
+    def _finish(self, rec: dict, image: np.ndarray, index: int, epoch: int,
+                train: bool) -> dict:
+        """Host CLAHE (train, p = ``clahe_prob``) and the metadata."""
+        if train and self.clahe_prob > 0:
+            rng = _sample_rng(self.seed, epoch, index)
+            if rng.uniform() < self.clahe_prob:
+                image = apply_clahe(image, rng)
+        out = self._metadata(rec)
+        out["image"] = image
+        return out
+
+    def _sample_fn(self, train: bool, cache: Optional[dict]):
+        def fn(rec, index, epoch):
+            image = cache.get(index) if cache is not None else None
+            if image is None:
+                image = self._load(rec)
+                if cache is not None:
+                    cache[index] = image
+            return self._finish(rec, image, index, epoch, train)
+        return fn
+
+    def _batch_fn(self, train: bool, cache: Optional[dict]):
+        """Native-loader batch path: one call decodes, crops and resizes
+        the batch's images that are not in the image cache on the C++
+        thread pool."""
+        out_h, out_w = self._native_hw()
+
+        def fn(records, indices, epoch):
+            images = [None] * len(records)
+            miss, blobs, boxes = [], [], []
+            for i, (rec, index) in enumerate(zip(records, indices)):
+                if cache is not None:
+                    hit = cache.get(int(index))
+                    if hit is not None:
+                        images[i] = hit
+                        continue
+                miss.append(i)
+                with open(rec["image_path"], "rb") as f:
+                    blobs.append(f.read())
+                boxes.append(self._box(rec))
+            if blobs:
+                decoded = native_loader.batch_decode_crop_resize(
+                    blobs, boxes, out_h, out_w,
+                    n_threads=max(self.workers, 1))
+                for pos, img in zip(miss, decoded):
+                    images[pos] = img
+                    if cache is not None:
+                        cache[int(indices[pos])] = img
+            return collate([
+                self._finish(rec, image, int(index), epoch, train)
+                for rec, index, image in zip(records, indices, images)])
+        return fn
+
+    def _loader(self, db, train: bool, batch_size=None,
+                cache: Optional[dict] = None) -> HostLoader:
+        """``train`` semantics: shuffle, drop_last and host CLAHE.
+        ``cache`` is ``db``'s image cache (keyed by position in ``db``) or
+        None; ``build_device_cache`` decodes ``train_db`` with val
+        semantics and no cache, so the val cache never holds train
+        crops."""
+        kwargs = dict(batch_size=batch_size or self.batch_size,
+                      shuffle=train, seed=self.seed, drop_last=train,
+                      workers=self.workers)
+        if self.use_native:
+            return HostLoader(db, None, batch_fn=self._batch_fn(train, cache),
+                              **kwargs)
+        return HostLoader(db, self._sample_fn(train, cache), **kwargs)
+
+    def _cache(self, train: bool) -> Optional[dict]:
+        return self._image_cache[train] if self.cache_images else None
+
+    def train_loader(self, batch_size=None) -> HostLoader:
+        return self._loader(self.train_db, True, batch_size, self._cache(True))
+
+    def val_loader(self, batch_size=None) -> HostLoader:
+        return self._loader(self.val_db, False, batch_size,
+                            self._cache(False))
+
+
+class SBPCOCODataModule(_ImageLoaders):
     """Builds the train and val instance DBs and their host loaders (the
     reference datamodule surface, dataset/sbp_coco_dataset.py:190-277), with
-    the JAX package's constructor arguments.  ``use_native`` may be None or
-    False: the native C++ loader is not ported yet.  A subclass that sets
-    ``absolute_paths`` reads annotations whose ``file_name`` is already the
-    image path (``SBPPISDataModule``)."""
+    the JAX package's constructor arguments (``use_native``: see
+    ``_ImageLoaders.use_native``).  A subclass that
+    sets ``absolute_paths`` reads annotations whose ``file_name`` is
+    already the image path (``SBPPISDataModule``)."""
 
     absolute_paths = False
 
@@ -146,10 +249,6 @@ class SBPCOCODataModule:
                  class_labels: Sequence[str], img_dir: Optional[str] = None,
                  use_native: Optional[bool] = None, clahe_prob: float = 0.5,
                  seed: int = 0, cache_images: bool = False):
-        if use_native:
-            raise NotImplementedError(
-                "the native loader is not ported; use_native must be None "
-                "or False")
         self.train_path = train_path
         self.val_path = val_path
         self.img_dir = img_dir
@@ -160,6 +259,7 @@ class SBPCOCODataModule:
         self.workers = int(workers)
         self.batch_size = int(batch_size)
         self.class_labels = list(class_labels)
+        self.use_native = use_native
         # host CLAHE probability on train crops; the Trainer zeroes it when
         # CLAHE runs on the device or is off
         self.clahe_prob = float(clahe_prob)
@@ -167,7 +267,7 @@ class SBPCOCODataModule:
         # opt-in host RAM cache of the cropped and resized uint8 arrays
         # (deterministic per record: no random op precedes them)
         self.cache_images = bool(cache_images)
-        self._crop_cache = {True: {}, False: {}}
+        self._image_cache = {True: {}, False: {}}
         self.train_db: List[dict] = []
         self.val_db: List[dict] = []
 
@@ -205,7 +305,7 @@ class SBPCOCODataModule:
             "category_id": np.int64(rec["category_id"]),
         }
 
-    def _load_crop(self, rec: dict) -> np.ndarray:
+    def _load(self, rec: dict) -> np.ndarray:
         import cv2
 
         in_h, in_w = self.input_size
@@ -218,32 +318,9 @@ class SBPCOCODataModule:
         return cv2.resize(crop, (in_w, in_h),
                           interpolation=cv2.INTER_LINEAR)
 
-    def _sample_fn(self, train: bool):
-        cache = self._crop_cache[train] if self.cache_images else None
+    def _box(self, rec: dict) -> Tuple[int, int, int, int]:
+        b = rec["bbox"]
+        return int(b[0]), int(b[1]), int(b[2]), int(b[3])
 
-        def fn(rec, index, epoch):
-            image = cache.get(index) if cache is not None else None
-            if image is None:
-                image = self._load_crop(rec)
-                if cache is not None:
-                    cache[index] = image
-            if train and self.clahe_prob > 0:
-                rng = _sample_rng(self.seed, epoch, index)
-                if rng.uniform() < self.clahe_prob:
-                    image = apply_clahe(image, rng)
-            out = self._metadata(rec)
-            out["image"] = image
-            return out
-        return fn
-
-    def _loader(self, db, train: bool, batch_size=None) -> HostLoader:
-        return HostLoader(db, self._sample_fn(train),
-                          batch_size=batch_size or self.batch_size,
-                          shuffle=train, seed=self.seed, drop_last=train,
-                          workers=self.workers)
-
-    def train_loader(self, batch_size=None) -> HostLoader:
-        return self._loader(self.train_db, True, batch_size)
-
-    def val_loader(self, batch_size=None) -> HostLoader:
-        return self._loader(self.val_db, False, batch_size)
+    def _native_hw(self) -> Tuple[int, int]:
+        return self.input_size[0], self.input_size[1]

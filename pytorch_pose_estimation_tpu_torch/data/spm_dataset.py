@@ -7,22 +7,23 @@ uint8 pixels with every person's joints and a root joint per person (the
 center of the int-cast clean bbox), scaled to the input; the targets and
 the augmentation run on the device.  Persons are padded to
 ``max_persons`` with (0, 0), the absent-point sentinel the SPM targets
-skip.  The optional host CLAHE on train images draws from the same
-per-record stream as SBP's (``_sample_rng``).  cv2 is imported where an
-image is read.
+skip.  The loaders are SBP's (``sbp_dataset._ImageLoaders``): cv2 per
+sample or the native loader per batch, whole-image boxes
+``(-1, -1, -1, -1)``, chosen by ``use_native`` as in the JAX package; the
+optional host CLAHE on train images draws from the same per-record stream
+as SBP's.  cv2 is imported where an image is read.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .coco import CocoAnnotations
-from .pipeline import HostLoader
-from .sbp_dataset import (_sample_rng, apply_clahe, coco_img_dir,
-                          joints_from_ann, sanitize_bbox)
+from .sbp_dataset import (_ImageLoaders, coco_img_dir, joints_from_ann,
+                          sanitize_bbox)
 
 
 def load_spm_image_db(coco: CocoAnnotations, img_dir: str,
@@ -70,10 +71,9 @@ def load_spm_image_db(coco: CocoAnnotations, img_dir: str,
     return db
 
 
-class SPMCOCODataModule:
+class SPMCOCODataModule(_ImageLoaders):
     """Whole-image train and val loaders, with the JAX package's
-    constructor arguments.  ``use_native`` may be None or False: the native
-    C++ loader is not ported yet."""
+    constructor arguments; ``use_native`` as in ``SBPCOCODataModule``."""
 
     def __init__(self, train_path: Optional[str], val_path: Optional[str],
                  img_dir: Optional[str], input_size: int, output_size: int,
@@ -82,10 +82,6 @@ class SPMCOCODataModule:
                  max_persons: int = 30, use_native: Optional[bool] = None,
                  clahe_prob: float = 0.5, seed: int = 0,
                  cache_images: bool = False):
-        if use_native:
-            raise NotImplementedError(
-                "the native loader is not ported; use_native must be None "
-                "or False")
         self.train_path = train_path
         self.val_path = val_path
         self.img_dir = img_dir
@@ -97,13 +93,14 @@ class SPMCOCODataModule:
         self.batch_size = int(batch_size)
         self.class_labels = list(class_labels)
         self.max_persons = int(max_persons)
+        self.use_native = use_native
         # host CLAHE probability on train images; the Trainer zeroes it when
         # CLAHE runs on the device or is off
         self.clahe_prob = float(clahe_prob)
         self.seed = int(seed)
         # opt-in host RAM cache of the resized uint8 images
         self.cache_images = bool(cache_images)
-        self._img_cache = {True: {}, False: {}}
+        self._image_cache = {True: {}, False: {}}
         self.train_db: List[dict] = []
         self.val_db: List[dict] = []
 
@@ -139,39 +136,15 @@ class SPMCOCODataModule:
             "image_size": np.asarray(rec["image_size"], np.int64),
         }
 
-    def _load_image(self, rec: dict) -> np.ndarray:
+    def _load(self, rec: dict) -> np.ndarray:
         import cv2
 
         s = self.input_size
         img = cv2.cvtColor(cv2.imread(rec["image_path"]), cv2.COLOR_BGR2RGB)
         return cv2.resize(img, (s, s), interpolation=cv2.INTER_LINEAR)
 
-    def _sample_fn(self, train: bool):
-        cache = self._img_cache[train] if self.cache_images else None
+    def _box(self, rec: dict) -> Tuple[int, int, int, int]:
+        return (-1, -1, -1, -1)  # the whole image
 
-        def fn(rec, index, epoch):
-            img = cache.get(index) if cache is not None else None
-            if img is None:
-                img = self._load_image(rec)
-                if cache is not None:
-                    cache[index] = img
-            if train and self.clahe_prob > 0:
-                rng = _sample_rng(self.seed, epoch, index)
-                if rng.uniform() < self.clahe_prob:
-                    img = apply_clahe(img, rng)
-            out = self._metadata(rec)
-            out["image"] = img
-            return out
-        return fn
-
-    def _loader(self, db, train: bool, batch_size=None) -> HostLoader:
-        return HostLoader(db, self._sample_fn(train),
-                          batch_size=batch_size or self.batch_size,
-                          shuffle=train, seed=self.seed, drop_last=train,
-                          workers=self.workers)
-
-    def train_loader(self, batch_size=None) -> HostLoader:
-        return self._loader(self.train_db, True, batch_size)
-
-    def val_loader(self, batch_size=None) -> HostLoader:
-        return self._loader(self.val_db, False, batch_size)
+    def _native_hw(self) -> Tuple[int, int]:
+        return self.input_size, self.input_size

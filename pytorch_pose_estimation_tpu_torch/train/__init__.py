@@ -2,6 +2,7 @@ from .checkpoint import (CheckpointManager, extract_backbone,
                          load_backbone, load_pretrained, next_version_dir,
                          restore_checkpoint, restore_checkpoint_flexible,
                          save_checkpoint)
+from .device_cache import DeviceDataCache, build_device_cache
 from .state import TrainState
 from .steps import (make_sbp_eval_step, make_sbp_steps, make_spm_eval_step,
                     make_spm_steps)
@@ -12,9 +13,11 @@ from .trainer import (Trainer, apply_precision_config, build_metric,
 
 __all__ = [
     "CheckpointManager",
+    "DeviceDataCache",
     "TrainState",
     "Trainer",
     "apply_precision_config",
+    "build_device_cache",
     "build_metric",
     "build_model",
     "extract_backbone",

@@ -17,9 +17,14 @@ contract (train_sbp.py:55-79):
   an optional partial warm start from ``model_pretrained``.
 
 Each train step runs augmentation, targets (kernel K1 for SBP), forward,
-backward and the update on the device; the host loader prefetches the next
-batches meanwhile, and the batch is copied from pinned memory without a
-sync.
+backward and the update on the device.  The batches come from the host
+loader, which prefetches the next ones meanwhile (the batch is copied from
+pinned memory without a sync), or, with ``cache_device: True``, from the
+train set decoded once and held on the device (``device_cache.py``), in the
+JAX package's order.  ``cache_device`` moves CLAHE to the device as in the
+JAX package, unless the config says ``clahe: off``; ``cache_scan`` and
+``scan_steps_per_dispatch`` (the JAX package's ``lax.scan`` runner) are
+read by nothing here: the port steps one batch at a time either way.
 
 Entry points run on the card by default (``device="cuda"``) and raise when
 CUDA is not available; they never carry on quietly on the CPU.  Pass
@@ -46,6 +51,7 @@ from ..ops.image import normalize_batch
 from ..optim import build_optimizer_from_cfg
 from .checkpoint import (CheckpointManager, load_backbone, load_pretrained,
                          next_version_dir, restore_checkpoint)
+from .device_cache import build_device_cache
 from .state import TrainState
 from .steps import (make_sbp_eval_step, make_sbp_steps, make_spm_eval_step,
                     make_spm_steps)
@@ -222,8 +228,10 @@ class Trainer:
     """SBP, PIS or SPM (``kind``) training on one device
     (``device="cuda"`` by default; raises without CUDA).  ``data_module``
     gives ``train_loader()`` (with ``set_epoch``), ``val_loader()`` and
-    ``val_db``.  ``step`` and the epoch counter continue across a
-    resume."""
+    ``val_db``; with ``cache_device`` also ``train_db``, ``batch_size`` and
+    ``_loader(db, train, batch_size)``, which ``build_device_cache``
+    decodes the train set through.  ``step`` and the epoch counter continue
+    across a resume, and so does the cache's order."""
 
     def __init__(self, cfg: dict, data_module, kind: str = "sbp",
                  logging: bool = True, device="cuda"):
@@ -243,6 +251,12 @@ class Trainer:
         if clahe_mode not in ("host", "device", "off"):
             raise ValueError(f"clahe must be host, device or off, got "
                              f"{clahe_mode!r}")
+        # the device cache's batches never pass the host again, so the
+        # per-sample CLAHE must run on the device too
+        self.cache_device = bool(cfg.get("cache_device"))
+        self._device_cache = None  # built on the first fit()
+        if self.cache_device and clahe_mode == "host":
+            clahe_mode = "device"
         if data_module is not None and clahe_mode != "host" and \
                 hasattr(data_module, "clahe_prob"):
             data_module.clahe_prob = 0.0
@@ -250,9 +264,10 @@ class Trainer:
         # user overrides: rotate_limit / scale_range / ratio_range /
         # color_jitter / rotate_prob / jitter_prob / angle_groups
         augment.update(cfg.get("augment_options") or {})
+        if kind == "spm" and cfg.get("augment_geometric"):
+            augment["geometric"] = True
+        self.augment = augment  # the train step's augmentation options
         if kind == "spm":
-            if cfg.get("augment_geometric"):
-                augment["geometric"] = True
             self.train_step, self.eval_step = make_spm_steps(
                 model, optimizer, cfg["input_size"], cfg["output_size"],
                 int(cfg["num_keypoints"]), float(cfg["sigma"]),
@@ -451,18 +466,32 @@ class Trainer:
 
         best_val = float("inf")
         bad_rounds = 0
-        train_loader = self.dm.train_loader()
+        train_loader = None if self.cache_device else self.dm.train_loader()
+        if self.cache_device and self._device_cache is None:
+            t0 = time.time()
+            self._device_cache = build_device_cache(
+                self.dm, self.dm.batch_size, seed=int(cfg.get("seed", 0)),
+                keys=self.keys, device=self.device)
+            cache = self._device_cache
+            print(f"device cache: {cache.n_total} instances, "
+                  f"{cache.nbytes() / 2 ** 20:.0f} MB on {self.device}, "
+                  f"{cache.steps_per_epoch} steps/epoch (built in "
+                  f"{time.time() - t0:.1f}s)", flush=True)
         for epoch in range(start_epoch, max_epochs):
-            train_loader.set_epoch(epoch)
+            if train_loader is None:
+                batches = self._device_cache.epoch_batches(epoch)
+            else:
+                train_loader.set_epoch(epoch)
+                batches = (self._device_batch(b, self.keys)
+                           for b in train_loader)
             epoch_losses = []
             t0 = time.time()
             n_img = 0
-            for batch in train_loader:
+            for batch in batches:
                 self._profile()
-                loss = self.train_step(
-                    self._device_batch(batch, self.keys), gen, host_gen)
+                loss = self.train_step(batch, gen, host_gen)
                 self.global_step += 1
-                n_img += len(batch["image"])
+                n_img += batch["image"].shape[0]
                 # keep the device scalar: no host sync per step
                 epoch_losses.append(loss)
                 if self.global_step % self.log_every == 0:

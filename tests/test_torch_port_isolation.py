@@ -4,7 +4,8 @@ nor tensorboardX; its entry points (the Trainer, ``load_for_inference``,
 the train and inference modules, the PIS harnesses and
 ``train_classifier`` among them) default to the GPU and raise without
 one; the kernel module imports without nvcc and fails clearly when asked
-to build without it."""
+to build without it; importing the native loader's binding builds
+nothing."""
 
 import os
 import subprocess
@@ -30,17 +31,27 @@ import chip_smoke
 roots = ("jax", "jaxlib", "flax", "optax", "pytorch_pose_estimation_tpu")
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m in roots or m.startswith(tuple(r + "." for r in roots))))
-print(len(names), bad)
+print(" ".join(names))
+print(bad)
+from pytorch_pose_estimation_tpu_torch.data import native_loader
+print(native_loader._tried)  # importing tried no build
 """
+# modules added with the device cache and the native loader
+NEW_MODULES = ("data.native_loader", "train.device_cache",
+               "test_coco_keypoints_map", "models.hourglass")
 
 
 def test_port_imports_without_jax_cv2_yaml_or_the_jax_package():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.split(maxsplit=1)
-    assert int(n) >= 20  # every module of the package was imported
+    names, bad, tried = out.stdout.splitlines()
+    names = names.split()
+    assert len(names) >= 20  # every module of the package was imported
+    for name in NEW_MODULES:
+        assert f"pytorch_pose_estimation_tpu_torch.{name}" in names, name
     assert bad.strip() == "[]"
+    assert tried == "False"
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():

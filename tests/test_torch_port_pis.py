@@ -31,7 +31,6 @@ import pis_handle_test_code as jax_handle_cli
 from pytorch_pose_estimation_tpu import optim as jax_optim
 from pytorch_pose_estimation_tpu import pis as jax_pis
 from pytorch_pose_estimation_tpu.data import SBPPISDataModule as JaxPISData
-from pytorch_pose_estimation_tpu.data import native_loader as jax_native
 from pytorch_pose_estimation_tpu.data.coco import \
     CocoAnnotations as JaxCocoAnnotations
 from pytorch_pose_estimation_tpu.data.sbp_dataset import \
@@ -113,8 +112,8 @@ def _modules(train_path, val_path, batch_size=2, clahe_prob=0.0):
                 num_keypoints=K, sigma=SIGMA, workers=2,
                 batch_size=batch_size, class_labels=PIS_LABELS,
                 clahe_prob=clahe_prob, seed=3)
-    port, theirs = SBPPISDataModule(**args), JaxPISData(use_native=False,
-                                                        **args)
+    port = SBPPISDataModule(use_native=False, **args)
+    theirs = JaxPISData(use_native=False, **args)
     port.setup()
     theirs.setup()
     return port, theirs
@@ -552,7 +551,6 @@ def test_harness_counts_match_root_cli(behavior, weights, task, monkeypatch):
         "handle": (jax_handle_cli, pis_handle_test_code),
         "fall": (jax_fall_cli, pis_falling_down_test_code)}[task]
     monkeypatch.setattr(root_cli, "load_sbp_predictor", jax_predictor)
-    monkeypatch.setattr(jax_native, "available", lambda: False)
     want = root_cli.run(dict(cfg), path, label_depth=-2)
     got = port_cli.main(["--cfg", _yaml(cfg, path), "--ckpt", path,
                          "--label-depth", "-2", "--val-path", val,
@@ -581,7 +579,6 @@ def test_inference_sbp_pis_images_equal_root_cli(behavior, weights, task,
     assert capsys.readouterr().out.count("Inference: ") == 3
     monkeypatch.setattr(jax_inference_pis, "load_sbp_predictor",
                         jax_predictor)
-    monkeypatch.setattr(jax_native, "available", lambda: False)
     jax_inference_pis.inference(dict(cfg), path, task, str(theirs), limit=3)
     names = [f"{i:06d}_pred.jpg" for i in range(3)]
     assert sorted(os.listdir(ours)) == sorted(os.listdir(theirs)) == names

@@ -53,7 +53,7 @@ def setup(tmp_path_factory):
         train_path=json_path, val_path=json_path, img_dir=root,
         input_size=cfg["input_size"], output_size=cfg["output_size"],
         num_keypoints=17, sigma=SIGMA, workers=2, batch_size=4,
-        class_labels=COCO_KP_NAMES, use_native=False)
+        class_labels=COCO_KP_NAMES)
     jax_dm.setup()
     dm = SBPCOCODataModule(
         train_path=None, val_path=json_path, img_dir=root,
@@ -98,6 +98,8 @@ def _tensors(batch):
 
 
 def test_val_loader_matches_jax_cv2_loader(setup):
+    """Both packages' default decoder (the native loader when it is built,
+    else cv2, in both): the same val batches, exactly."""
     _, jax_dm, dm, _, _ = setup
     assert len(dm.val_db) == len(jax_dm.val_db) > 4  # >1 batch, ragged tail
     got, want = list(dm.val_loader()), list(jax_dm.val_loader())

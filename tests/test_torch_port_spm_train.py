@@ -280,8 +280,8 @@ def _cfg(root, **over):
 def _data_modules(cfg, clahe_prob=0.5):
     args = (cfg["train_path"], cfg["val_path"], cfg["img_dir"], IN, OUT, K,
             SIGMA, 2, cfg["batch_size"], COCO_KP_NAMES)
-    port = SPMCOCODataModule(*args, max_persons=P, clahe_prob=clahe_prob,
-                             seed=3)
+    port = SPMCOCODataModule(*args, max_persons=P, use_native=False,
+                             clahe_prob=clahe_prob, seed=3)
     jax_dm = JaxDataModule(*args, max_persons=P, use_native=False,
                            clahe_prob=clahe_prob, seed=3)
     port.setup()
@@ -308,9 +308,12 @@ def test_spm_data_module_matches_jax(synth):
             assert x[k].dtype == y[k].dtype, k
             np.testing.assert_array_equal(x[k], y[k], err_msg=k)
     assert pairs[0][0]["image_size"].dtype == np.int64
-    with pytest.raises(NotImplementedError, match="use_native"):
-        SPMCOCODataModule(None, None, None, IN, OUT, K, SIGMA, 0, 2, [],
-                          use_native=True)
+    # use_native=True takes the native path: one batch_fn call a batch
+    native = SPMCOCODataModule(None, None, None, IN, OUT, K, SIGMA, 0, 2, [],
+                               use_native=True)
+    assert native.use_native
+    loader = native.train_loader()
+    assert loader.batch_fn is not None and loader.sample_fn is None
 
 
 def test_spm_metric_matches_jax(synth, tmp_path, monkeypatch):

@@ -364,7 +364,7 @@ def _data_modules(cfg, clahe_prob):
     args = (cfg["train_path"], cfg["val_path"], cfg["input_size"],
             cfg["output_size"], K, SIGMA, 2, cfg["batch_size"],
             COCO_KP_NAMES)
-    port = SBPCOCODataModule(*args, img_dir=cfg["img_dir"],
+    port = SBPCOCODataModule(*args, img_dir=cfg["img_dir"], use_native=False,
                              clahe_prob=clahe_prob, seed=3)
     jax_dm = JaxDataModule(*args, img_dir=cfg["img_dir"], use_native=False,
                            clahe_prob=clahe_prob, seed=3)
