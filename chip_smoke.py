@@ -93,10 +93,32 @@ non-zero, printing no result:
    decoders' pixels on one val batch (mean difference under 2 levels); e.
    SPM with ``cache_device`` at
    512x512, batch 32, 64 images, one epoch: the memo holds image, joints
-   and centers, and no kernel launches.
+   and centers, and no kernel launches;
+11. data parallelism (``parallel``) on the one card: a. world 1 under a
+   real NCCL group (torchrun's environment set here): two steps of
+   ``Trainer.fit`` give losses and parameters bitwise equal to the same
+   run without a group (cuDNN deterministic for the pair); then two ranks,
+   both on cuda:0 over gloo (NCCL refuses two ranks on one card), started
+   by ``parallel.launch``: b. one fp32 train step (TF32 off) of
+   full-width SBP at the global batch 256, 128 rows a rank, against the
+   one-process step on the card from the same weights and draws (loss
+   1e-5, update 0.1 of its norm, BN statistics 3e-4, phase 6b's bounds),
+   the ranks' parameters bitwise equal, then each rank's step time and
+   peak memory (two ranks sharing one card: not a scaling figure); c. the
+   cached ``Trainer.fit`` (fp32, so that the AP comparison sees no
+   batch-size-dependent bf16 rounding) on phase 10's JPEG set, each rank
+   holding half of the padded cache, 2 epochs and then a resumed epoch
+   ('auto'): epoch 0's rows on each rank equal the JAX package's 2-device
+   cache order recomputed here with numpy, K1 launches once per train and
+   eval step and K2 once per eval step on each rank, one checkpoint writer
+   (rank 0), the ranks' final states bitwise equal, and the last
+   (val_loss, val_mAP) equals a one-process ``validate`` of rank 0's final
+   weights (loss 1e-6, AP exactly); d. with two or more cards, 11b again
+   over NCCL with a card per rank, else "skipped: 1 card".
 
 The last three lines of standard output: the card's name and power limit,
-one JSON object describing each kernel (launches summed over phases 4-10),
+one JSON object describing each kernel (launches summed over phases 4-10,
+and each rank's launches in 11c),
 and ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
 ...}}``.  The configs are written inline with the values of
 configs/sbp_coco.yaml, spm_coco.yaml, sbp_pis.yaml and
@@ -106,6 +128,7 @@ JAX.
 """
 
 import contextlib
+import datetime
 import importlib.util
 import io
 import json
@@ -119,7 +142,7 @@ import time
 import numpy as np
 import torch
 
-from pytorch_pose_estimation_tpu_torch import (optim,
+from pytorch_pose_estimation_tpu_torch import (optim, parallel,
                                                pis_falling_down_test_code,
                                                pis_handle_test_code,
                                                saving_weights,
@@ -139,6 +162,8 @@ from pytorch_pose_estimation_tpu_torch.ops import targets as target_ops
 from pytorch_pose_estimation_tpu_torch.ops.image import (normalize_batch,
                                                          sample_augment,
                                                          sample_photometric)
+from pytorch_pose_estimation_tpu_torch.train import checkpoint
+from pytorch_pose_estimation_tpu_torch.train import trainer as trainer_module
 from pytorch_pose_estimation_tpu_torch.pis import (HANDLE_ROI, NEG_MAX,
                                                    POS_MIN, FallingDown,
                                                    HandleGrip)
@@ -1725,6 +1750,399 @@ def phase_cache(tmp):
     phase_spm_cached(tmp, synth)
     print(f"cache launches (phase 10): {launches}; cached fit epochs "
           f"{cached} img/s; phase 10 took {time.perf_counter() - start:.1f} s")
+    return launches, cfg
+
+
+# --------------------------------------------------------------------------
+# phase 11: data parallelism, two ranks on the one card
+# --------------------------------------------------------------------------
+
+P_B = 256  # the global batch of 11b and 11c: 128 rows a rank
+RANK_TIMEOUT = 600  # seconds a rank waits in one collective
+TORCHRUN_ENV = {"MASTER_ADDR": "127.0.0.1", "RANK": "0", "WORLD_SIZE": "1",
+                "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1"}
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_gib(device):
+    if torch.device(device).type != "cuda":
+        return float("nan")
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _same_on_ranks(tensors):
+    """Whether every rank holds bitwise rank 0's tensors (on the card
+    under NCCL, which takes no host tensor)."""
+    device = "cuda" if torch.distributed.get_backend() == "nccl" else "cpu"
+    flat = torch.cat([t.detach().reshape(-1).double().to(device)
+                      for t in tensors])
+    ref = flat.clone()
+    torch.distributed.broadcast(ref, 0)
+    ok = torch.tensor([float(torch.equal(ref, flat))], dtype=torch.float64,
+                      device=device)
+    torch.distributed.all_reduce(ok, op=torch.distributed.ReduceOp.MIN)
+    return bool(ok.item())
+
+
+def _memory_sbp(rng, n, hw, b):
+    """``_MemoryData`` over ``n`` seeded crops of ``hw``, batch ``b``, no
+    val set."""
+    h, w = hw
+    return _MemoryData(
+        {"image": rng.randint(0, 256, (n, h, w, 3), dtype=np.uint8),
+         "joints": np.stack([rng.uniform(0, w, (n, K)),
+                             rng.uniform(0, h, (n, K))],
+                            -1).astype(np.float32),
+         "joints_vis": (rng.rand(n, K) > 0.2).astype(np.float32)},
+        2 * b, {"image": []}, b)
+
+
+def phase_world1_group(cfg):
+    """11a: two steps of ``Trainer.fit`` (``cfg`` at batch 64) without a
+    group and then as rank 0 of a one-rank NCCL group joined from
+    torchrun's environment: the losses and parameters must be bitwise
+    equal; cuDNN deterministic for the pair."""
+    cfg = dict(cfg, batch_size=64)
+    dm = _memory_sbp(np.random.RandomState(5), 64, cfg["input_size"], 64)
+    torch.backends.cudnn.deterministic = True
+    runs, backend = [], None
+    try:
+        for grouped in (False, True):
+            if grouped:
+                os.environ.update(TORCHRUN_ENV,
+                                  MASTER_PORT=str(parallel.mesh.free_port()))
+            losses = []
+            trainer = Trainer(cfg, dm, logging=False)
+            in_group = torch.distributed.is_initialized()
+            trainer.train_step = _recording(trainer.train_step, losses)
+            trainer.fit()
+            runs.append((in_group, torch.stack(losses).cpu(),
+                         {k: v.cpu() for k, v in
+                          trainer.model.state_dict().items()}))
+            del trainer
+    finally:
+        torch.backends.cudnn.deterministic = False
+        if torch.distributed.is_initialized():
+            backend = torch.distributed.get_backend()
+            torch.distributed.destroy_process_group()
+        for k in list(TORCHRUN_ENV) + ["MASTER_PORT"]:
+            os.environ.pop(k, None)
+    (g0, l0, s0), (g1, l1, s1) = runs
+    same = torch.equal(l0, l1) and all(torch.equal(s0[k], s1[k]) for k in s0)
+    print(f"11a world 1: without a group (group {g0}) and in a one-rank "
+          f"{backend} group joined from torchrun's environment (group {g1})"
+          f": losses {l0.tolist()} and {l1.tolist()}; losses and "
+          f"parameters bitwise equal: {same}")
+    check(not g0 and g1 and backend == "nccl" and same,
+          "11a: a one-rank group changed the training")
+
+
+def _p_step_build(cfg, device):
+    """The fp32 SBP of ``cfg`` (TF32 off) on ``device`` and its train step
+    (nesterov SGD at lr 1e-3), seeded."""
+    cfg = dict(cfg, precision="fp32")
+    model = build_model(cfg, "sbp").to(device).train()
+    opt = optim.get_optimizer("sgd", list(model.parameters()), lr=1e-3,
+                              momentum=0.9, weight_decay=5e-3, nesterov=True)
+    step = make_sbp_steps(model, opt, cfg["input_size"],
+                          tuple(cfg["output_size"]), K, float(cfg["sigma"]),
+                          0.25)[0]
+    return model, step
+
+
+def _p_step(spec, rows):
+    """The compared step (the global draws, this process's ``rows`` of the
+    global batch); returns (loss, state after, state before, model,
+    step, batch)."""
+    device = spec["device"]
+    model, step = _p_step_build(spec["cfg"], device)
+    start = {k: v.detach().cpu().clone() for k, v in
+             model.state_dict().items()}
+    batch = {k: torch.from_numpy(rows(v)).to(device)
+             for k, v in spec["batch"].items()}
+    loss = float(step(batch, draws=_draws_to(spec["draws"], device)))
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return loss, state, start, model, step, batch
+
+
+def _rank_step(spec):
+    """11b in a rank: the compared step on this rank's rows; rank 0 saves
+    it; then 3 timed steps after one warm-up (host clock, synchronized)."""
+    device = spec["device"]
+    loss, state, start, _, step, batch = _p_step(spec, parallel.local_rows)
+    same = _same_on_ranks(list(state.values()))
+    if parallel.is_main():
+        torch.save((loss, state, start), spec["out"])
+    gen = torch.Generator(device).manual_seed(4)
+    host_gen = torch.Generator().manual_seed(4)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    step(batch, gen, host_gen)
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step(batch, gen, host_gen)
+    _sync(device)
+    ms = (time.perf_counter() - t0) / 3 * 1e3
+    split = {}
+    if cuda:  # one more step, split by CUDA events at its markers
+        events, names = [torch.cuda.Event(enable_timing=True)], []
+
+        def marker(name):
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            names.append(name)
+
+        events[0].record()
+        step(batch, gen, host_gen, marker=marker)
+        torch.cuda.synchronize()
+        split = {n: events[i].elapsed_time(events[i + 1])
+                 for i, n in enumerate(names)}
+    return {"same": same, "ms": ms, "split": split,
+            "peak_gib": _peak_gib(device), "rows": len(batch["image"])}
+
+
+def _cache_rows(cfg, rank, world, epoch):
+    """The JAX package's cache order on a ``world``-device mesh, from its
+    rule alone (numpy): ``rank``'s instances at each step of ``epoch``,
+    and the padded count."""
+    memo = cfg["train_path"] + ".devcache"
+    n = len(np.load(os.path.join(memo, "joints.npy"), mmap_mode="r"))
+    seed = int(cfg.get("seed", 0))
+    order = np.random.RandomState(
+        (seed * 2654435761 + 97) % (2 ** 32)).permutation(n)
+    n_pad = -(-n // world) * world
+    order = np.concatenate([order, order[:n_pad - n]])
+    n_local, pb = n_pad // world, cfg["batch_size"] // world
+    rng = np.random.RandomState((seed * 1000003 + epoch) % (2 ** 32))
+    perms = [rng.permutation(n_local) for _ in range(world)]
+    shard = order[rank * n_local:(rank + 1) * n_local]
+    return [shard[perms[rank][s * pb:(s + 1) * pb]]
+            for s in range(n_local // pb)], n_pad
+
+
+def _capture_metrics(metrics):
+    """Keep every metric that ``validate`` builds (rank 0's), so that its
+    predictions can be compared, not only its AP."""
+    build = trainer_module.build_metric
+    trainer_module.build_metric = lambda *a, **kw: (
+        metrics.append(build(*a, **kw)), metrics[-1])[1]
+
+
+def _rank_fit(spec):
+    """11c in a rank: the cached fit, 2 epochs, then a new Trainer resumed
+    from 'auto' for a third; counts this rank's launches and checkpoint
+    writes, keeps the fed batches, each validation's result and rank 0's
+    last predictions."""
+    cfg, device = spec["cfg"], spec["device"]
+    dm = _sbp_data(cfg["img_dir"], cfg)
+    writes, vals, fed, metrics = [], [], [], []
+    save = checkpoint._save_atomic
+    checkpoint._save_atomic = lambda obj, path: (writes.append(path),
+                                                 save(obj, path))
+    _capture_metrics(metrics)
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    trainers = [Trainer(cfg, dm, device=device),
+                Trainer(dict(cfg, epochs=3), dm, device=device)]
+    for tr in trainers:
+        step, validate_fn = tr.train_step, tr.validate
+        tr.train_step = lambda batch, *a, _s=step, **kw: (
+            fed.append(batch), _s(batch, *a, **kw))[1]
+        tr.validate = lambda *a, _v=validate_fn, **kw: (
+            vals.append(_v(*a, **kw)), vals[-1])[1]
+    trainers[0].fit()
+    first_steps = len(fed)
+    trainers[1].fit(resume="auto")
+    _sync(device)
+    dt = time.perf_counter() - t0
+    launches = _counts()
+    cache = trainers[0]._device_cache
+    rows, n_pad = _cache_rows(cfg, parallel.rank(), parallel.world_size(), 0)
+    memo = cfg["train_path"] + ".devcache"
+    arrays = {k: np.load(os.path.join(memo, k + ".npy")) for k in fed[0]}
+    epoch0 = all(torch.equal(fed[s][k].cpu(), torch.from_numpy(
+        arrays[k][rows[s]])) for s in range(len(rows)) for k in fed[s])
+    state = {k: v.detach().cpu() for k, v in
+             trainers[1].model.state_dict().items()}
+    same = _same_on_ranks(list(state.values()))
+    if parallel.is_main():
+        torch.save(state, spec["out"])
+    return {"launches": launches, "steps": len(fed),
+            "first_steps": first_steps,
+            "global_step": trainers[1].global_step,
+            "steps_per_epoch": cache.steps_per_epoch, "n_pad": n_pad,
+            "n_total": cache.n_total, "mb": cache.nbytes() / 1e6,
+            "epoch0_rows": epoch0, "epoch0_steps": len(rows),
+            "writes": len(writes), "vals": vals, "same": same,
+            "predictions": metrics[-1].result_list if metrics else None,
+            "seconds": dt, "val_batches": len(dm.val_loader()),
+            "peak_gib": _peak_gib(device)}
+
+
+def _phase11_rank(spec):
+    """One rank of 11b and 11c (11d: 11b alone)."""
+    out = {"rank": parallel.rank(), "11b": _rank_step(spec["11b"])}
+    if "11c" in spec:
+        out["11c"] = _rank_fit(spec["11c"])
+    return out
+
+
+def _check_step(label, spec, ranks, one, shared):
+    """11b's (or 11d's) ranks against the one-process step."""
+    loss1, state1, start1 = one
+    loss2, state2, start2 = torch.load(spec["out"], weights_only=True)
+    check(all(torch.equal(start1[k], start2[k]) for k in start1),
+          f"{label}: the seeded weights differ")
+    loss_rel = abs(loss2 - loss1) / abs(loss1)
+    gap = _update_gap((state2, start2), (state1, start1))
+    stats = max(float((state2[k] - state1[k]).abs().max()
+                      / state1[k].abs().max())
+                for k in state1 if k.endswith(("running_mean",
+                                               "running_var")))
+    same = all(r["11b"]["same"] for r in ranks)
+    print(f"{label}: {len(ranks)} ranks x {ranks[0]['11b']['rows']} rows vs"
+          f" one process at batch {P_B}, fp32 (TF32 off): loss {loss2:.6f} "
+          f"vs {loss1:.6f} ({loss_rel:.2e} relative); update {gap:.2e} of "
+          f"its norm apart; BN running statistics {stats:.2e} of the "
+          f"largest value; ranks' parameters bitwise equal: {same}")
+    for r in ranks:
+        b = r["11b"]
+        split = ", ".join(f"{k} {v:.1f} ms" for k, v in b["split"].items())
+        print(f"{label} rank {r['rank']}: train step {b['ms']:.1f} ms at "
+              f"{b['rows']} rows ({b['rows'] * 1e3 / b['ms']:.0f} img/s of "
+              f"this rank, {shared}), host clock over 3 steps after 1; one "
+              f"step by CUDA events: {split}; peak memory "
+              f"{b['peak_gib']:.2f} GiB")
+    check(loss_rel <= 1e-5 and gap <= 0.1 and stats <= 3e-4 and same,
+          f"{label}: the ranks' step disagrees with one process's")
+
+
+def _check_fit(cfg, ranks, out, device):
+    """11c's checks; returns each rank's launches."""
+    fits = [r["11c"] for r in ranks]
+    f0 = fits[0]
+    steps = 3 * f0["steps_per_epoch"]
+    evals = 3 * f0["val_batches"]
+    want = {"sbp_heatmaps_cuda": steps + evals, "decode_sbp_cuda": evals}
+    for r, f in zip(ranks, fits):
+        print(f"11c rank {r['rank']}: {f['steps']} train steps "
+              f"({f['first_steps']} in the first fit, then resumed to step "
+              f"{f['global_step']}), its shard of the {f['n_total']}-instance"
+              f" padded cache: {f['mb']:.1f} MB on the card; epoch 0's "
+              f"{f['epoch0_steps']} batches are the JAX 2-device order's "
+              f"rows: {f['epoch0_rows']}; launches {f['launches']} (want "
+              f"{want}); checkpoint writes {f['writes']}; last (val_loss, "
+              f"val_mAP) {f['vals'][-1]}; final states bitwise equal: "
+              f"{f['same']}; {f['seconds']:.1f} s (Trainers, 3 epochs, "
+              f"validations, checkpoints), peak memory {f['peak_gib']:.2f} "
+              f"GiB")
+        check(f["epoch0_rows"] and f["steps"] == steps and
+              f["global_step"] == steps and f["same"] and
+              f["n_total"] == f["n_pad"] and f["vals"] == f0["vals"],
+              f"11c rank {r['rank']}: the cached fit on 2 ranks failed")
+        check(f["launches"] == want,
+              f"11c rank {r['rank']}: launches {f['launches']}, want {want}")
+    check(f0["writes"] > 0 and all(f["writes"] == 0 for f in fits[1:]),
+          f"11c: checkpoint writes per rank {[f['writes'] for f in fits]}")
+    check(f0["predictions"] and all(f["predictions"] is None
+                                    for f in fits[1:]),
+          "11c: rank 0 alone must build the metric")
+    dm = _sbp_data(cfg["img_dir"], cfg)
+    model = build_model(cfg, "sbp")
+    model.load_state_dict(torch.load(out, weights_only=True))
+    metrics = []
+    build = trainer_module.build_metric
+    _capture_metrics(metrics)
+    try:
+        want_loss, want_map = validate(cfg, dm, model.to(device), device,
+                                       verbose=False)
+    finally:
+        trainer_module.build_metric = build
+    loss, ap = f0["vals"][-1]
+    moved, score_gap = _prediction_gaps(metrics[0].result_list,
+                                        f0["predictions"])
+    n = len(f0["predictions"])
+    print(f"11c: one-process validate of rank 0's final weights: "
+          f"val_loss {want_loss:.8f} val_mAP {want_map:.6f}; 2 ranks: "
+          f"{loss:.8f} {ap:.6f}; of the {n} predictions' {n * K} joints "
+          f"{moved} decoded elsewhere, scores at most {score_gap:.2e} apart "
+          f"(the eval step runs {-(-n // len(fits))} rows a rank against "
+          f"{n} in one process: cuDNN's sums may round differently)")
+    # the AP of random weights is 0, so the predictions are compared too:
+    # a logit 1 ulp off moves a score by ~1e-7 and a joint only at a near
+    # tie (ROADMAP Queue 3)
+    check(abs(loss - want_loss) <= 1e-6 * abs(want_loss) and
+          ap == want_map and score_gap <= 1e-5 and moved <= n * K // 100,
+          "11c: the 2-rank validation differs from one process's")
+    return [f["launches"] for f in fits]
+
+
+def _prediction_gaps(want, got):
+    """(joints whose (x, y) differ, the largest score difference) between
+    two metrics' predictions of the same instances, in order."""
+    check(len(want) == len(got) and all(
+        (w["image_id"], w["category_id"]) == (g["image_id"],
+                                              g["category_id"])
+        for w, g in zip(want, got)), "11c: the predictions' instances differ")
+    a = np.array([w["keypoints"] for w in want], np.float64).reshape(
+        len(want), -1, 3)
+    b = np.array([g["keypoints"] for g in got], np.float64).reshape(
+        len(got), -1, 3)
+    moved = int((a[..., :2] != b[..., :2]).any(-1).sum())
+    scores = np.array([[w["score"], g["score"]] for w, g in zip(want, got)])
+    return moved, float(np.abs(scores[:, 0] - scores[:, 1]).max(initial=0))
+
+
+def phase_parallel(tmp, cache_cfg, device="cuda", ranks_on=("cuda:0",
+                                                            "cuda:0")):
+    """Phase 11 (see the module docstring) on phase 10's JPEG set
+    (``cache_cfg``).  Returns each rank's launches in 11c."""
+    start = time.perf_counter()
+    if torch.device(device).type == "cuda":
+        phase_world1_group(TRAIN_CFG)
+    h, w = cache_cfg["input_size"]
+    rng = np.random.RandomState(11)
+    step_spec = {"device": device, "cfg": cache_cfg,
+                 "batch": _memory_sbp(rng, P_B, (h, w), P_B).train,
+                 "draws": sample_augment(torch.Generator().manual_seed(12),
+                                         P_B, (h, w), clahe_prob=0.5),
+                 "out": os.path.join(tmp, "p11b.pt")}
+    loss, state, begin, *_ = _p_step(step_spec, lambda v: v)
+    one = (loss, state, begin)
+    _sync(device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    fit_cfg = dict(cache_cfg, precision="fp32", epochs=2,
+                   save_dir=os.path.join(tmp, "saved_parallel"))
+    spec = {"11b": step_spec,
+            "11c": {"device": device, "cfg": fit_cfg,
+                    "out": os.path.join(tmp, "p11c.pt")}}
+    t0 = time.perf_counter()
+    ranks = parallel.launch(
+        _phase11_rank, list(ranks_on), "gloo", args=(spec,),
+        timeout=datetime.timedelta(seconds=RANK_TIMEOUT))
+    print(f"11b-c: 2 ranks on {ranks_on[0]} over gloo, started and run in "
+          f"{time.perf_counter() - t0:.1f} s")
+    _check_step("11b", step_spec, ranks, one,
+                "two ranks sharing one card: not a scaling figure")
+    launches = _check_fit(fit_cfg, ranks, spec["11c"]["out"], device)
+    if torch.device(device).type == "cuda" and \
+            torch.cuda.device_count() >= 2:
+        spec = {"11b": dict(step_spec, out=os.path.join(tmp, "p11d.pt"))}
+        ranks = parallel.launch(
+            _phase11_rank, ["cuda:0", "cuda:1"], "nccl", args=(spec,),
+            timeout=datetime.timedelta(seconds=RANK_TIMEOUT))
+        _check_step("11d", spec["11b"], ranks, one, "one card a rank")
+    else:
+        print("11d NCCL across cards: skipped: 1 card")
+    print(f"phase 11 took {time.perf_counter() - start:.1f} s")
     return launches
 
 
@@ -1764,10 +2182,12 @@ def main():
             for name, n in phase_pis(sbp_last, rng, tmp).items():
                 launches[name] += n
             phase_classifier(tmp, rng)
-            for name, n in phase_cache(tmp).items():
+            cache_launches, cache_cfg = phase_cache(tmp)
+            for name, n in cache_launches.items():
                 launches[name] += n
             print(f"launches over phases 4-10 (SBP serve, eval and fit; "
                   f"SPM; PIS; classifier; cache): {launches}")
+            rank_launches = phase_parallel(tmp, cache_cfg)
         finally:
             os.chdir(cwd)
 
@@ -1775,6 +2195,7 @@ def main():
         ms, plain, bnd, by = rows[B]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
+                "launches_per_rank_11c": [r[name] for r in rank_launches],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bnd, "bound_by": by, "library_ms": None}
 

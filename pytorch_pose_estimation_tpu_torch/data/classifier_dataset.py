@@ -47,6 +47,9 @@ class ImageFolderDataModule:
         self.workers = int(workers)
         self.batch_size = int(batch_size)
         self.seed = int(seed)
+        # this process's train shard, as the pose data modules'
+        self.process_index = 0
+        self.process_count = 1
         self.classes: List[str] = []
         self.train_db: List[dict] = []
         self.val_db: List[dict] = []
@@ -72,10 +75,12 @@ class ImageFolderDataModule:
         return {"image": img, "label": np.int32(rec["label"])}
 
     def _loader(self, db, train: bool, batch_size=None) -> HostLoader:
+        shard = (self.process_index, self.process_count) if train else (0, 1)
         return HostLoader(db, self._sample,
                           batch_size=batch_size or self.batch_size,
                           shuffle=train, seed=self.seed, drop_last=train,
-                          workers=self.workers)
+                          workers=self.workers, process_index=shard[0],
+                          process_count=shard[1])
 
     def train_loader(self, batch_size=None) -> HostLoader:
         return self._loader(self.train_db, True, batch_size)

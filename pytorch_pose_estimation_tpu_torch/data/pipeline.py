@@ -10,7 +10,17 @@ pool, and there is no Python thread pool.
 Determinism, as in the JAX package: ``shuffle`` permutes the records with
 ``np.random.RandomState((seed * 1000003 + epoch) % 2**32)``, so both
 packages' loaders yield the same instances in the same order for a seed and
-an epoch.  The per-process shards come with the multi-GPU slice.
+an epoch.
+
+Data parallelism (``parallel``) takes one of two forms here:
+
+* on several nodes, each process loads its own shard of the records,
+  ``indices[process_index::process_count]`` after the shared permutation,
+  padded by wraparound to equal lengths (torch's DistributedSampler
+  semantics, the JAX package's ``_indices``);
+* on one node, every rank walks the same global batches and builds only
+  its rows of each (``split_rows``), as the JAX mesh splits a host's
+  global batch into contiguous rows.
 """
 
 from __future__ import annotations
@@ -60,6 +70,7 @@ class HostLoader:
     def __init__(self, db: Sequence, sample_fn: Optional[Callable],
                  batch_size: int, shuffle: bool = False, seed: int = 0,
                  drop_last: bool = False, workers: int = 0,
+                 process_index: int = 0, process_count: int = 1,
                  batch_fn: Optional[Callable] = None):
         if sample_fn is None and batch_fn is None:
             raise ValueError("HostLoader needs a sample_fn or a batch_fn")
@@ -71,10 +82,26 @@ class HostLoader:
         self.seed = int(seed or 0)
         self.drop_last = drop_last
         self.workers = max(int(workers), 0)
+        self.process_index = int(process_index)
+        self.process_count = max(int(process_count), 1)
         self.epoch = 0
+        self._rows = (0, 1)  # (rank, world) of split_rows
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = int(epoch)
+
+    def split_rows(self, rank: int, world: int) -> "HostLoader":
+        """Build only rows ``rank*b:(rank+1)*b`` of every batch, b =
+        batch_size / world; the batches and their order are unchanged.
+        Needs ``drop_last`` (every batch full) and world | batch_size."""
+        if world > 1 and not self.drop_last:
+            raise ValueError("split_rows needs drop_last: a ragged last "
+                             "batch does not split into equal rows")
+        if self.batch_size % world:
+            raise ValueError(f"batch {self.batch_size} is not divisible by "
+                             f"the {world} ranks")
+        self._rows = (int(rank), int(world))
+        return self
 
     def _indices(self) -> np.ndarray:
         idx = np.arange(len(self.db))
@@ -82,22 +109,33 @@ class HostLoader:
             rng = np.random.RandomState(
                 (self.seed * 1000003 + self.epoch) % (2 ** 32))
             idx = rng.permutation(idx)
-        return idx
+        if self.process_count > 1 and len(idx):
+            # DistributedSampler semantics: pad by wraparound, so that every
+            # process runs the same number of steps (an unequal count would
+            # leave a rank waiting in a collective)
+            target = -(-len(idx) // self.process_count) * self.process_count
+            if target > len(idx):
+                idx = np.concatenate([idx, idx[:target - len(idx)]])
+        return idx[self.process_index::self.process_count]
 
     def _batches(self) -> List[np.ndarray]:
         idx = self._indices()
+        rank, world = self._rows
+        b = self.batch_size // world
         out = []
         for start in range(0, len(idx), self.batch_size):
             chunk = idx[start:start + self.batch_size]
             if self.drop_last and len(chunk) < self.batch_size:
                 break
-            out.append(chunk)
+            out.append(chunk[rank * b:(rank + 1) * b] if world > 1
+                       else chunk)
         return out
 
     def __len__(self) -> int:
+        n = len(self._indices())
         if self.drop_last:
-            return len(self.db) // self.batch_size
-        return -(-len(self.db) // self.batch_size)
+            return n // self.batch_size
+        return -(-n // self.batch_size)
 
     def _build(self, chunk: np.ndarray, epoch: int, pool) -> dict:
         if self.batch_fn is not None:

@@ -209,14 +209,19 @@ class _ImageLoaders:
 
     def _loader(self, db, train: bool, batch_size=None,
                 cache: Optional[dict] = None) -> HostLoader:
-        """``train`` semantics: shuffle, drop_last and host CLAHE.
+        """``train`` semantics: shuffle, drop_last, host CLAHE and this
+        process's shard (``process_index`` of ``process_count``, set by the
+        ``Trainer`` on several nodes; the val loader is not sharded: the
+        sharded validation splits each global val batch into rows).
         ``cache`` is ``db``'s image cache (keyed by position in ``db``) or
         None; ``build_device_cache`` decodes ``train_db`` with val
         semantics and no cache, so the val cache never holds train
         crops."""
+        shard = (self.process_index, self.process_count) if train else (0, 1)
         kwargs = dict(batch_size=batch_size or self.batch_size,
                       shuffle=train, seed=self.seed, drop_last=train,
-                      workers=self.workers)
+                      workers=self.workers, process_index=shard[0],
+                      process_count=shard[1])
         if self.use_native:
             return HostLoader(db, None, batch_fn=self._batch_fn(train, cache),
                               **kwargs)
@@ -268,6 +273,10 @@ class SBPCOCODataModule(_ImageLoaders):
         # (deterministic per record: no random op precedes them)
         self.cache_images = bool(cache_images)
         self._image_cache = {True: {}, False: {}}
+        # this process's train shard (the Trainer sets them on several
+        # nodes)
+        self.process_index = 0
+        self.process_count = 1
         self.train_db: List[dict] = []
         self.val_db: List[dict] = []
 

@@ -101,6 +101,10 @@ class SPMCOCODataModule(_ImageLoaders):
         # opt-in host RAM cache of the resized uint8 images
         self.cache_images = bool(cache_images)
         self._image_cache = {True: {}, False: {}}
+        # this process's train shard (the Trainer sets them on several
+        # nodes)
+        self.process_index = 0
+        self.process_count = 1
         self.train_db: List[dict] = []
         self.val_db: List[dict] = []
 

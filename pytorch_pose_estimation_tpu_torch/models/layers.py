@@ -18,6 +18,57 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh
+
+_DIMS = (0, 2, 3)  # every axis but the channels'
+
+
+def _channel(v: torch.Tensor) -> torch.Tensor:
+    return v.view(1, -1, 1, 1)
+
+
+class _CrossReplicaBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the global batch of every rank's equal
+    share: the forward gathers each rank's per-channel mean and sum of
+    squared deviations and combines them (Chan's rule, exact in exact
+    arithmetic and stable); the backward all-reduces the sums of dy and of
+    dy * (x - mean), so dx is the gradient of the ranks' summed loss, as
+    the global batch's BN gives it.  The weight and bias gradients are
+    this rank's share (the train step averages the gradients).  Returns
+    (y, mean, biased variance)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        n = x.numel() // x.shape[1]
+        mean = x.mean(_DIMS)
+        m2 = (x - _channel(mean)).square().sum(_DIMS)
+        stats = mesh.gather_rows(torch.stack([mean, m2])[None])
+        world = stats.shape[0]
+        g_mean = stats[:, 0].mean(0)
+        var = (stats[:, 1] + n * (stats[:, 0] - g_mean).square()).sum(0) \
+            / (n * world)
+        invstd = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, weight, g_mean, invstd)
+        ctx.count = n * world
+        ctx.mark_non_differentiable(g_mean, var)
+        y = (x - _channel(g_mean)) * _channel(invstd * weight) \
+            + _channel(bias)
+        return y, g_mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        x, weight, mean, invstd = ctx.saved_tensors
+        xmu = x - _channel(mean)
+        sum_dy = dy.sum(_DIMS)
+        sum_dy_xmu = (dy * xmu).sum(_DIMS)
+        total = mesh.all_reduce_sum(torch.stack([sum_dy, sum_dy_xmu]))
+        mean_dy = total[0] / ctx.count
+        mean_dy_xmu = total[1] / ctx.count
+        dx = (dy - _channel(mean_dy)
+              - xmu * _channel(invstd.square() * mean_dy_xmu)) \
+            * _channel(invstd * weight)
+        return dx, sum_dy_xmu * invstd, sum_dy, None
+
 
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm (eps 1e-5) whose train-mode update of the running
@@ -30,7 +81,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     still does the update: it is handed the running variance divided by
     s = (n-1)/n, adds 0.1 of the unbiased variance (= biased / s), and the
     sum times s is flax's update.  Eval mode is torch's.  The state_dict
-    keys are those of ``nn.BatchNorm2d``."""
+    keys are those of ``nn.BatchNorm2d``.
+
+    Under a process group of several ranks (``parallel``), train mode is
+    cross-replica: the statistics, the running statistics' update (with
+    the global count n) and the backward are those of the global batch,
+    as GSPMD gives the JAX package on a mesh."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -38,6 +94,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if mesh.world_size() > 1:
+            return self._cross_replica(x)
         n = x.numel() // x.shape[1]
         if n < 2:
             raise ValueError("BatchNorm2d needs more than one value per "
@@ -48,6 +106,16 @@ class BatchNorm2d(nn.BatchNorm2d):
                            self.bias, True, self.momentum, self.eps)
         with torch.no_grad():
             self.running_var.copy_(running_var * s)
+            self.num_batches_tracked.add_(1)
+        return out
+
+    def _cross_replica(self, x: torch.Tensor) -> torch.Tensor:
+        out, mean, var = _CrossReplicaBatchNorm.apply(x, self.weight,
+                                                      self.bias, self.eps)
+        m = self.momentum
+        with torch.no_grad():
+            self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1 - m).add_(var, alpha=m)
             self.num_batches_tracked.add_(1)
         return out
 

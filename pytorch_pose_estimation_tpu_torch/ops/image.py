@@ -464,6 +464,38 @@ def sample_augment(gen: torch.Generator, batch: int, out_hw: Sequence[int],
                         x0, y0, cw, ch, p.clahe, p.clahe_clip)
 
 
+def replica_draws(draws, r: int, world: int):
+    """The draws of rank ``r``'s rows ``r*b:(r+1)*b`` of a global batch of
+    B = world*b samples, from ``draws`` (``AugmentDraws`` or
+    ``PhotometricDraws``) of the whole batch: every rank draws for the
+    global batch from identically seeded generators and keeps its rows, so
+    N ranks augment as one process does.  Identity for one rank.
+
+    The rotation shares one angle per contiguous group of B/G samples of
+    the global batch.  Group and rank boundaries both fall on multiples of
+    d = gcd(B/G, b), so the rank's rows are b/d runs of d samples, each in
+    one global group: the rank rotates b/d groups of d with those groups'
+    angles, whether it holds several groups or a part of one.  A sample's
+    rotation does not depend on how the batch is grouped (every output
+    sums two exact products, see ``_product_sum``)."""
+    if world == 1:
+        return draws
+    batch = draws.brightness.shape[0]
+    if batch % world:
+        raise ValueError(f"batch {batch} is not divisible by the {world} "
+                         f"ranks")
+    b = batch // world
+    out = {k: v[r * b:(r + 1) * b] if torch.is_tensor(v) else v
+           for k, v in vars(draws).items()}
+    if isinstance(draws, AugmentDraws):
+        size = batch // draws.angles.shape[0]
+        d = math.gcd(size, b)
+        groups = torch.arange(r * b, (r + 1) * b, d,
+                              device=draws.angles.device) // size
+        out["angles"] = draws.angles[groups]
+    return type(draws)(**out)
+
+
 def spm_photometric_core(images_u8: torch.Tensor, draws: PhotometricDraws,
                          out_dtype: torch.dtype = torch.float32
                          ) -> torch.Tensor:

@@ -12,7 +12,10 @@ included) and the same meta as the sidecar.
 
 Every file is written under a temporary name and then renamed with
 ``os.replace``, so a kill in the middle of a save leaves the previous file
-whole and only a ``*.tmp*`` file behind.  Weight surgery (the reference's
+whole and only a ``*.tmp*`` file behind.  Under several ranks
+(``parallel``), rank 0 makes the version directory and writes every file,
+and each save ends in a barrier, so no rank reads a file before it is
+whole; every rank restores.  Weight surgery (the reference's
 saving_weights.py:22-42): ``extract_backbone`` and ``load_pretrained``;
 ``load_backbone`` overlays a backbone from either layout the framework
 makes (a pose model's ``backbone_features_module.*`` or the darknet19
@@ -32,20 +35,26 @@ from torch import nn
 
 from ..models import load_state_dict_file
 from ..models.darknet import STAGE_NAMES
+from ..parallel import mesh
 from .state import TrainState
 
 _BACKBONE = "backbone_features_module."
 
 
 def next_version_dir(save_dir: str, model_name: str) -> str:
-    base = os.path.join(save_dir, model_name)
-    os.makedirs(base, exist_ok=True)
-    n = 0
-    while os.path.exists(os.path.join(base, f"version_{n}")):
-        n += 1
-    path = os.path.join(base, f"version_{n}")
-    os.makedirs(os.path.join(path, "checkpoints"), exist_ok=True)
-    return path
+    """A new ``<save_dir>/<model_name>/version_N`` with its
+    ``checkpoints``; under several ranks rank 0 makes it and every rank
+    gets its path."""
+    path = None
+    if mesh.is_main():
+        base = os.path.join(save_dir, model_name)
+        os.makedirs(base, exist_ok=True)
+        n = 0
+        while os.path.exists(os.path.join(base, f"version_{n}")):
+            n += 1
+        path = os.path.join(base, f"version_{n}")
+        os.makedirs(os.path.join(path, "checkpoints"), exist_ok=True)
+    return mesh.broadcast_object(path)
 
 
 def _tmp(path: str) -> str:
@@ -67,11 +76,14 @@ def _write_meta(path: str, meta: dict) -> None:
 
 def save_checkpoint(path: str, state: TrainState,
                     meta: Optional[dict] = None) -> str:
-    """Write ``state`` (and ``meta``, also as the sidecar) to ``path``."""
+    """Write ``state`` (and ``meta``, also as the sidecar) to ``path``;
+    under several ranks rank 0 writes and every rank waits until it has."""
     path = os.path.abspath(path)
     meta = dict(meta or {"step": state.step})
-    _save_atomic(dict(state.state_dict(), meta=meta), path)
-    _write_meta(path, meta)
+    if mesh.is_main():
+        _save_atomic(dict(state.state_dict(), meta=meta), path)
+        _write_meta(path, meta)
+    mesh.barrier()
     return path
 
 
@@ -92,9 +104,11 @@ class CheckpointManager:
         if val_loss is not None and val_loss < self.best_val_loss:
             self.best_val_loss = val_loss
             best = os.path.join(self.ckpt_dir, "best")
-            shutil.copyfile(path, _tmp(best))
-            os.replace(_tmp(best), best)
-            _write_meta(best, meta)
+            if mesh.is_main():
+                shutil.copyfile(path, _tmp(best))
+                os.replace(_tmp(best), best)
+                _write_meta(best, meta)
+            mesh.barrier()
             self.best_path = path
         return path
 

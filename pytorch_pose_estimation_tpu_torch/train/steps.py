@@ -11,6 +11,15 @@ sample come back.
 SPM's steps run no kernel: photometric augmentation (or, opt-in, SBP's
 geometric one), the SPM targets, forward, loss and the peak-NMS decode are
 torch ops.
+
+Under a process group of N ranks (``parallel``) a train step's batch is
+the rank's b rows of a global batch of B = N*b.  The step draws the
+augmentation for the global batch from generators seeded alike on every
+rank and keeps its rows (``replica_draws``); BatchNorm takes the global
+batch's statistics; after the backward one all-reduce averages the
+gradients and the loss over the ranks (``parallel.average_gradients``),
+so the optimizer sees the global batch's mean gradient and every rank
+returns the global loss.  With one rank the step is unchanged.
 """
 
 from __future__ import annotations
@@ -23,10 +32,32 @@ from torch import nn
 from ..losses import (sbp_loss, sbp_loss_per_sample, spm_loss,
                       spm_loss_per_sample)
 from ..ops.decode import decode_sbp_fast, decode_spm_batch
-from ..ops.image import (augment_batch_core, normalize_batch, sample_augment,
-                         sample_photometric, spm_photometric_core)
+from ..ops.image import (augment_batch_core, normalize_batch, replica_draws,
+                         sample_augment, sample_photometric,
+                         spm_photometric_core)
 from ..ops.targets import sbp_heatmaps_batch, spm_target
 from ..optim import ChainOptimizer
+from ..parallel import mesh
+
+
+def _backward_and_update(model: nn.Module, optimizer: ChainOptimizer,
+                         loss: torch.Tensor, mark: Callable) -> torch.Tensor:
+    """Backward, the ranks' gradient all-reduce (none with one rank) and
+    the update; returns the (global) loss, detached."""
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    mark("forward_backward")
+    if mesh.world_size() > 1:
+        loss, = mesh.average_gradients(model.parameters(), loss)
+        mark("all_reduce")
+    optimizer.step()
+    mark("optimizer")
+    return loss.detach()
+
+
+def _global_batch(batch: dict) -> int:
+    """The global batch size B = world * this rank's rows."""
+    return batch["image"].shape[0] * mesh.world_size()
 
 
 def _sbp_targets(joints: torch.Tensor, vis: torch.Tensor, ratio: float,
@@ -78,10 +109,12 @@ def make_sbp_steps(model: nn.Module, optimizer: ChainOptimizer,
     ``train_step(batch, gen=None, host_gen=None, draws=None, marker=None)
     -> loss`` (a 0-dim device tensor) updates ``model`` and ``optimizer``
     in place.  ``batch`` holds image uint8 [B,H,W,3], joints [B,K,2] and
-    joints_vis [B,K] on the model's device.  The augmentation is drawn from
-    ``gen`` (on that device) and ``host_gen`` (see ``sample_augment``), or
-    given as ``draws``.  ``marker(name)``, if given, is called after each
-    part: "augment", "targets", "forward_backward", "optimizer".
+    joints_vis [B,K] on the model's device (under N ranks, this rank's
+    rows of the global batch).  The augmentation of the global batch is
+    drawn from ``gen`` (on that device) and ``host_gen`` (see
+    ``sample_augment``), or given as ``draws``.  ``marker(name)``, if
+    given, is called after each part: "augment", "targets",
+    "forward_backward", ("all_reduce" under N ranks), "optimizer".
 
     ``augment`` overrides the JAX package's defaults: rotate_limit 40,
     scale_range (0.4, 1), ratio_range (0.4, 1.6), color_jitter
@@ -109,8 +142,9 @@ def make_sbp_steps(model: nn.Module, optimizer: ChainOptimizer,
         model.train()
         with torch.no_grad():
             if draws is None:
-                draws = sample_augment(gen, batch["image"].shape[0], out_hw,
+                draws = sample_augment(gen, _global_batch(batch), out_hw,
                                        host_gen=host_gen, **options)
+            draws = replica_draws(draws, mesh.rank(), mesh.world_size())
             images, joints, vis = augment_batch_core(
                 batch["image"], batch["joints"].to(torch.float32),
                 batch["joints_vis"].to(torch.float32), draws, out_hw, dtype)
@@ -119,12 +153,7 @@ def make_sbp_steps(model: nn.Module, optimizer: ChainOptimizer,
                                   num_keypoints, sigma)
             mark("targets")
         loss = sbp_loss(model(images), target)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        mark("forward_backward")
-        optimizer.step()
-        mark("optimizer")
-        return loss.detach()
+        return _backward_and_update(model, optimizer, loss, mark)
 
     eval_step = make_sbp_eval_step(model, input_size, output_size,
                                    num_keypoints, sigma,
@@ -232,16 +261,17 @@ def make_spm_steps(model: nn.Module, optimizer: ChainOptimizer,
         mark = marker or (lambda name: None)
         model.train()
         with torch.no_grad():
-            b = batch["image"].shape[0]
-            if geometric:
-                if draws is None:
-                    draws = sample_augment(gen, b, (s, s), host_gen=host_gen,
+            b = _global_batch(batch)
+            if draws is None and geometric:
+                draws = sample_augment(gen, b, (s, s), host_gen=host_gen,
+                                       **options)
+            elif draws is None:
+                draws = sample_photometric(gen, b, host_gen=host_gen,
                                            **options)
+            draws = replica_draws(draws, mesh.rank(), mesh.world_size())
+            if geometric:
                 images, joints, centers = augment_geometric(batch, draws)
             else:
-                if draws is None:
-                    draws = sample_photometric(gen, b, host_gen=host_gen,
-                                               **options)
                 images = spm_photometric_core(batch["image"], draws, dtype)
                 joints, centers = batch["joints"], batch["centers"]
             mark("augment")
@@ -249,12 +279,7 @@ def make_spm_steps(model: nn.Module, optimizer: ChainOptimizer,
                                   num_keypoints, sigma)
             mark("targets")
         loss = spm_loss(model(images), target)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        mark("forward_backward")
-        optimizer.step()
-        mark("optimizer")
-        return loss.detach()
+        return _backward_and_update(model, optimizer, loss, mark)
 
     eval_step = make_spm_eval_step(model, input_size, output_size,
                                    num_keypoints, sigma,

@@ -26,6 +26,24 @@ JAX package, unless the config says ``clahe: off``; ``cache_scan`` and
 ``scan_steps_per_dispatch`` (the JAX package's ``lax.scan`` runner) are
 read by nothing here: the port steps one batch at a time either way.
 
+Data parallelism (``parallel``): a ``Trainer`` in a process group of N
+ranks (started by ``parallel.launch``, the training CLIs or torchrun)
+trains on one global batch of ``batch_size`` rows, each rank on its
+b = batch_size / N rows, with the JAX single-host mesh's semantics: the
+train steps average the gradients and BatchNorm takes the global batch's
+statistics, so the ranks' parameters stay bitwise equal and match one
+process's.  On one node step s's global batch is one process's batch s:
+every rank walks the same batches and builds only its rows, or, with
+``cache_device``, holds its shard of the cache.  On several nodes
+(``multihost``) each rank loads its own shard of the train set and
+``cache_device`` falls back to streaming, as in the JAX package.  The
+augmentation generators are seeded alike on every rank.  Rank 0 alone
+logs, prints and writes checkpoints; the others wait for its writes at
+barriers, and ``resume="auto"`` is resolved on rank 0.  Validation is
+sharded (``validate``) and returns the same result on every rank, so the
+early stop and the schedule decide alike everywhere.  With one GPU
+selected there is no process group and nothing of this runs.
+
 Entry points run on the card by default (``device="cuda"``) and raise when
 CUDA is not available; they never carry on quietly on the CPU.  Pass
 ``device="cpu"`` to run the plain PyTorch versions of the kernels.
@@ -49,6 +67,7 @@ from ..models.summary import print_summary
 from ..ops.decode import decode_sbp_fast
 from ..ops.image import normalize_batch
 from ..optim import build_optimizer_from_cfg
+from ..parallel import mesh
 from .checkpoint import (CheckpointManager, load_backbone, load_pretrained,
                          next_version_dir, restore_checkpoint)
 from .device_cache import build_device_cache
@@ -199,35 +218,64 @@ def _eval_step(cfg: dict, model: nn.Module, kind: str) -> Callable:
         float(cfg["conf_threshold"]))
 
 
+def _pad_rows(x: np.ndarray, world: int) -> np.ndarray:
+    """``x`` padded to a multiple of ``world`` rows by repeating row 0 (the
+    JAX package's ``Trainer._pad_to_devices``)."""
+    pad = -len(x) % world
+    if not pad:
+        return x
+    return np.concatenate([x, np.repeat(x[:1], pad, axis=0)])
+
+
+def _gather(out):
+    """Every rank's rows of an eval output (a tensor or a tuple of them)."""
+    if isinstance(out, tuple):
+        return tuple(mesh.gather_rows(t) for t in out)
+    return mesh.gather_rows(out)
+
+
 def validate(cfg: dict, data_module, model: nn.Module, device="cuda",
              verbose: bool = True, kind: str = "sbp") -> Tuple[float, float]:
     """Validation (``Trainer.validate``): eval step over the data module's
     val loader, mean per-sample loss and OKS AP@.5 of the decoded joints.
-    Returns (val_loss, val_mAP)."""
+    Returns (val_loss, val_mAP).
+
+    Under N ranks: each val batch is padded to a multiple of N by repeating
+    row 0, rank r evaluates its rows, the per-sample losses and the decoded
+    outputs of all rows are gathered, rank 0 counts the real rows in the
+    metric, and every rank returns rank 0's result."""
     device = resolve_device(device)
     keys = _KEYS[_check_kind(kind)]
     model = model.to(device).eval()
     eval_step = _eval_step(cfg, model, kind)
-    metric = build_metric(cfg, kind)
+    world = mesh.world_size()
+    metric = build_metric(cfg, kind) if mesh.is_main() else None
     loss_sum, n_total = 0.0, 0
     for batch in data_module.val_loader():
-        dev_batch = {k: torch.as_tensor(np.asarray(batch[k]), device=device)
-                     for k in keys}
+        n = len(batch["image"])
+        dev_batch = {k: torch.as_tensor(mesh.local_rows(_pad_rows(
+            np.asarray(batch[k]), world)), device=device) for k in keys}
         per_sample, decoded = eval_step(dev_batch)
+        if world > 1:
+            per_sample, decoded = mesh.gather_rows(per_sample)[:n], \
+                _gather(decoded)
         loss_sum += float(per_sample.sum())
-        n_total += len(batch["image"])
-        metric.update_state_decoded(batch, decoded)
+        n_total += n
+        if metric is not None:
+            metric.update_state_decoded(batch, decoded, count=n)
     val_loss = loss_sum / max(n_total, 1)
-    val_map = metric.result(verbose=verbose)
-    if verbose:
+    val_map = metric.result(verbose=verbose) if metric is not None else None
+    val_loss, val_map = mesh.broadcast_object((val_loss, val_map))
+    if verbose and mesh.is_main():
         print(f"val_loss={val_loss:.4f} val_mAP={val_map:.4f}")
     return val_loss, val_map
 
 
 class Trainer:
     """SBP, PIS or SPM (``kind``) training on one device
-    (``device="cuda"`` by default; raises without CUDA).  ``data_module``
-    gives ``train_loader()`` (with ``set_epoch``), ``val_loader()`` and
+    (``device="cuda"`` by default; raises without CUDA), or on one rank of
+    a process group (see the module docstring).  ``data_module`` gives
+    ``train_loader()`` (with ``set_epoch``), ``val_loader()`` and
     ``val_db``; with ``cache_device`` also ``train_db``, ``batch_size`` and
     ``_loader(db, train, batch_size)``, which ``build_device_cache``
     decodes the train set through.  ``step`` and the epoch counter continue
@@ -240,6 +288,26 @@ class Trainer:
         self.keys = _KEYS[kind]
         self.dm = data_module
         self.device = resolve_device(device)
+        # joins torchrun's group when its environment is set (under
+        # parallel.launch the group exists already)
+        self.rank, self.world = mesh.maybe_init_distributed(
+            cfg, "nccl" if self.device.type == "cuda" else "gloo")
+        self.main = self.rank == 0
+        self.multi_node = mesh.multi_node(cfg)
+        if self.world > 1:
+            b = mesh.per_rank(int(cfg["batch_size"]), self.world)
+            self._say(f"data parallel: {self.world} ranks on "
+                      f"{'several nodes' if self.multi_node else 'one node'}"
+                      f", {b} rows each of the global batch "
+                      f"{cfg['batch_size']}", flush=True)
+        elif self.device.type == "cuda" and torch.cuda.device_count() > 1 \
+                and len(mesh.select_devices(cfg.get("devices", "auto"))) > 1:
+            print("this Trainer is one process on one GPU: train through "
+                  "the CLIs (parallel.run) or torchrun to use the selected "
+                  "devices", flush=True)
+        if data_module is not None and self.multi_node:
+            data_module.process_index = self.rank
+            data_module.process_count = self.world
 
         model = build_model(cfg, kind).to(self.device).train()
         optimizer, schedule = build_optimizer_from_cfg(cfg, model)
@@ -254,6 +322,10 @@ class Trainer:
         # the device cache's batches never pass the host again, so the
         # per-sample CLAHE must run on the device too
         self.cache_device = bool(cfg.get("cache_device"))
+        if self.cache_device and self.multi_node:
+            self._say("cache_device is for one node; streaming with "
+                      "per-process shards instead")
+            self.cache_device = False
         self._device_cache = None  # built on the first fit()
         if self.cache_device and clahe_mode == "host":
             clahe_mode = "device"
@@ -286,9 +358,9 @@ class Trainer:
             path = cfg["model_pretrained"]
             if os.path.exists(path):
                 load_pretrained(self.state, path)
-                print(f"warm-started from {path}")
+                self._say(f"warm-started from {path}")
             else:
-                print(f"model_pretrained not found, skipping: {path}")
+                self._say(f"model_pretrained not found, skipping: {path}")
 
         self.version_dir = None
         self.writer = None
@@ -302,7 +374,7 @@ class Trainer:
                 from tensorboardX import SummaryWriter
             except ImportError:
                 SummaryWriter = None
-            if SummaryWriter is not None:
+            if SummaryWriter is not None and self.main:
                 self.writer = SummaryWriter(self.version_dir)
 
         self.global_step = 0
@@ -316,6 +388,11 @@ class Trainer:
     @property
     def model(self) -> nn.Module:
         return self.state.model
+
+    def _say(self, *args, **kwargs) -> None:
+        """print, on rank 0 only."""
+        if self.main:
+            print(*args, **kwargs)
 
     def _warm_start_backbone(self, bp) -> None:
         """Overlay the backbone from ``backbone_pretrained`` (JAX:
@@ -336,7 +413,7 @@ class Trainer:
         if bp == "tiny-imagenet":
             path = os.path.join(os.getcwd(), TINY_IMAGENET_CKPT)
             if not os.path.exists(path):
-                print(f"backbone_pretrained ckpt not found: {path}")
+                self._say(f"backbone_pretrained ckpt not found: {path}")
                 return
         elif os.path.isdir(bp):
             raise ValueError(
@@ -346,13 +423,16 @@ class Trainer:
         elif os.path.isfile(bp):
             path = bp
         else:
-            print(f"backbone_pretrained not found, skipping: {bp}")
+            self._say(f"backbone_pretrained not found, skipping: {bp}")
             return
         n = load_backbone(self.model, path)
-        print(f"backbone warm-started from {path} ({n} tensors)")
+        self._say(f"backbone warm-started from {path} ({n} tensors)")
 
     # ------------------------------------------------------------------
     def summary(self):
+        """The model's summary table (printed on rank 0 only)."""
+        if not self.main:
+            return None
         size = self.cfg["input_size"]
         h, w = (size, size) if self.kind == "spm" else size
         return print_summary(self.model, (1, 3, int(h), int(w)))
@@ -366,8 +446,9 @@ class Trainer:
         return {k: to_device(batch[k], self.device) for k in keys}
 
     def _profile(self):
-        """Start or stop the torch.profiler trace at the window's edges."""
-        if not self.profile_steps:
+        """Start or stop the torch.profiler trace at the window's edges
+        (rank 0's steps)."""
+        if not self.profile_steps or not self.main:
             return
         start, stop = self.profile_steps
         if self._profiler is None and self.global_step == start:
@@ -429,8 +510,9 @@ class Trainer:
     def fit(self, resume: Optional[str] = None) -> TrainState:
         cfg = self.cfg
         if resume == "auto":
-            resume = self._find_auto_resume()
-            print(f"auto-resume: {resume or 'no checkpoint found'}")
+            resume = mesh.broadcast_object(
+                self._find_auto_resume() if self.main else None)
+            self._say(f"auto-resume: {resume or 'no checkpoint found'}")
         start_epoch = 0
         if resume:
             # continue the run: the epoch from the checkpoint's meta, the
@@ -439,8 +521,8 @@ class Trainer:
             if "epoch" in meta:
                 start_epoch = int(meta["epoch"]) + 1
             self.global_step = self.state.step
-            print(f"resuming at epoch {start_epoch} "
-                  f"(global step {self.global_step})")
+            self._say(f"resuming at epoch {start_epoch} "
+                      f"(global step {self.global_step})")
         trainer_options = cfg.get("trainer_options", {}) or {}
         val_every = int(trainer_options.get("check_val_every_n_epoch", 1))
         patience = int(cfg.get("early_stop_patience", 30))
@@ -456,7 +538,7 @@ class Trainer:
                     break
                 self.eval_step(self._device_batch(batch, self.keys))
             self.model.train()
-            print(f"sanity validation: {sanity} batch(es) ok")
+            self._say(f"sanity validation: {sanity} batch(es) ok")
 
         # a resumed run draws a fresh augmentation stream instead of
         # replaying the first epochs' draws
@@ -466,17 +548,18 @@ class Trainer:
 
         best_val = float("inf")
         bad_rounds = 0
-        train_loader = None if self.cache_device else self.dm.train_loader()
+        train_loader = None if self.cache_device else self._train_loader()
         if self.cache_device and self._device_cache is None:
             t0 = time.time()
             self._device_cache = build_device_cache(
                 self.dm, self.dm.batch_size, seed=int(cfg.get("seed", 0)),
                 keys=self.keys, device=self.device)
             cache = self._device_cache
-            print(f"device cache: {cache.n_total} instances, "
-                  f"{cache.nbytes() / 2 ** 20:.0f} MB on {self.device}, "
-                  f"{cache.steps_per_epoch} steps/epoch (built in "
-                  f"{time.time() - t0:.1f}s)", flush=True)
+            self._say(f"device cache: {cache.n_total} instances, "
+                      f"{cache.nbytes() / 2 ** 20:.0f} MB on {self.device}"
+                      f"{' per rank' if self.world > 1 else ''}, "
+                      f"{cache.steps_per_epoch} steps/epoch (built in "
+                      f"{time.time() - t0:.1f}s)", flush=True)
         for epoch in range(start_epoch, max_epochs):
             if train_loader is None:
                 batches = self._device_cache.epoch_batches(epoch)
@@ -502,16 +585,17 @@ class Trainer:
             mean_loss = float(torch.stack(epoch_losses).mean()) if \
                 epoch_losses else float("nan")
             dt = time.time() - t0
-            print(f"epoch {epoch}: train_loss={mean_loss:.4f} "
-                  f"({n_img / max(dt, 1e-9):.1f} img/s)", flush=True)
+            self._say(f"epoch {epoch}: train_loss={mean_loss:.4f} "
+                      f"({n_img * self.world / max(dt, 1e-9):.1f} img/s)",
+                      flush=True)
 
             val_loss = None
             if (epoch + 1) % val_every == 0 and self.dm.val_db:
                 val_loss, val_map = self.validate(verbose=False)
                 self._log("val_loss", val_loss, self.global_step)
                 self._log("val_mAP", val_map, self.global_step)
-                print(f"epoch {epoch}: val_loss={val_loss:.4f} "
-                      f"val_mAP={val_map:.4f}")
+                self._say(f"epoch {epoch}: val_loss={val_loss:.4f} "
+                          f"val_mAP={val_map:.4f}")
                 if self.ckpt and (epoch + 1) % int(
                         cfg.get("save_freq", 1)) == 0:
                     self.ckpt.save_epoch(self.state, epoch, val_loss)
@@ -524,10 +608,25 @@ class Trainer:
                     cfg.get("save_last_every_n_epochs", 1)) == 0:
                 self.ckpt.save_last(self.state, epoch, val_loss)
             if bad_rounds >= patience:
-                print(f"early stopping at epoch {epoch} "
-                      f"(no val_loss improvement in {patience} rounds)")
+                self._say(f"early stopping at epoch {epoch} "
+                          f"(no val_loss improvement in {patience} rounds)")
                 break
+        if self.writer is not None:
+            # its thread must end before the process does (a spawned rank
+            # exits right after); a later log opens the file again
+            self.writer.close()
         return self.state
+
+    def _train_loader(self):
+        """The streaming train loader: on one node this rank's rows of
+        every global batch, on several its own shard at b rows a batch."""
+        if self.multi_node:
+            return self.dm.train_loader(
+                batch_size=mesh.per_rank(int(self.cfg["batch_size"])))
+        loader = self.dm.train_loader()
+        if self.world > 1:
+            loader.split_rows(self.rank, self.world)
+        return loader
 
     def validate(self, verbose: bool = True) -> Tuple[float, float]:
         """``validate`` on the data module's val loader, then the model is

@@ -16,16 +16,25 @@ the backward, the update, and the batch accuracy.  Validation every
 counts top-1 hits; then ``save_epoch`` with val_loss = 1 - accuracy, and
 ``save_last`` every epoch, under
 ``<save_dir>/<model>_<dataset_name>/version_N/checkpoints``.
+
+With ``--device cuda`` it trains on every GPU that the config's
+``devices`` selects, one process each (``parallel.run``), or on
+torchrun's ranks, with the JAX CLI's semantics: each rank takes its rows
+of the global batch and of the global dropout mask, the gradients are
+averaged, BatchNorm is cross-replica, and each val batch is padded to a
+multiple of the ranks (the padded rows count no hit).
 """
 
 import argparse
 import time
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import parallel
 from .config import get_configs, make_model_name
 from .data import ImageFolderDataModule
 from .models import lecun_normal_
@@ -52,12 +61,15 @@ def make_classifier_steps(model: nn.Module, optimizer, num_classes: int
     ``train_step(images, labels, gen=None, mask=None, marker=None) ->
     (loss, accuracy)``, both 0-dim device tensors (no host sync), updates
     ``model`` and ``optimizer`` in place; ``images`` uint8 [B, S, S, 3],
-    ``labels`` [B] on the model's device; the dropout keep mask is drawn
-    from ``gen`` unless given.  ``marker(name)``, if given, is called after
-    "forward_backward" and "optimizer".
+    ``labels`` [B] on the model's device (under N ranks, this rank's rows
+    of the global batch; loss and accuracy are the global batch's); the
+    dropout keep mask of the global batch is drawn from ``gen`` unless
+    given, and the rank keeps its rows.  ``marker(name)``, if given, is
+    called after "forward_backward", ("all_reduce" under N ranks) and
+    "optimizer".
 
     ``eval_step(images, labels) -> the number of top-1 hits`` (a 0-dim
-    tensor), in eval mode."""
+    tensor), in eval mode; a label -1 (a padded row) is never a hit."""
 
     def train_step(images: torch.Tensor, labels: torch.Tensor,
                    gen: Optional[torch.Generator] = None,
@@ -66,19 +78,24 @@ def make_classifier_steps(model: nn.Module, optimizer, num_classes: int
         mark = marker or (lambda name: None)
         model.train()
         x = normalize_batch(images)
+        world = parallel.world_size()
         if mask is None:
             b, _, h, w = x.shape
-            mask = sample_dropout_mask(gen, dropout_mask_shape(b, h, w),
-                                       device=x.device)
-        logits = model(x, mask)
+            mask = sample_dropout_mask(
+                gen, dropout_mask_shape(b * world, h, w), device=x.device)
+        logits = model(x, parallel.local_rows(mask))
         loss = classifier_loss(logits, labels, num_classes)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         mark("forward_backward")
-        optimizer.step()
-        mark("optimizer")
         with torch.no_grad():
             acc = (logits.argmax(-1) == labels).to(torch.float32).mean()
+        if world > 1:
+            loss, acc = parallel.average_gradients(model.parameters(), loss,
+                                                   acc)
+            mark("all_reduce")
+        optimizer.step()
+        mark("optimizer")
         return loss.detach(), acc
 
     @torch.inference_mode()
@@ -100,12 +117,34 @@ def build_classifier(cfg: dict, num_classes: int) -> nn.Module:
         int(cfg.get("seed", 0))))
 
 
+def _val_hits(eval_step, batch: dict, device) -> float:
+    """Top-1 hits of one val batch; under N ranks the batch is padded to a
+    multiple of N (images by repeating its first rows, labels with -1, as
+    the JAX CLI pads), each rank counts its rows and the counts are
+    summed."""
+    world = parallel.world_size()
+    images, labels = batch["image"], batch["label"]
+    pad = -len(labels) % world
+    if pad:
+        images = np.concatenate([images, images[:pad]], 0)
+        labels = np.concatenate([labels, np.full(pad, -1, labels.dtype)], 0)
+    hits = eval_step(to_device(parallel.local_rows(images), device),
+                     to_device(parallel.local_rows(labels), device))
+    return float(parallel.all_reduce_sum(hits))
+
+
 def train(cfg: dict, data_module=None, device: str = "cuda") -> TrainState:
     """Train per ``cfg``; ``data_module`` (default: an
     ``ImageFolderDataModule`` over ``train_dir`` and ``val_dir``) gives
     ``train_loader()``, ``val_loader()`` and ``val_db``.  Returns the
-    final ``TrainState``."""
+    final ``TrainState``.  Under a process group of N ranks each rank
+    trains on its rows of every global batch (on several nodes, on its
+    own shard of the train set); rank 0 prints and writes the
+    checkpoints."""
     device = resolve_device(device)
+    rank, world = parallel.maybe_init_distributed(
+        cfg, "nccl" if device.type == "cuda" else "gloo")
+    main = rank == 0
     dm = data_module
     if dm is None:
         dm = ImageFolderDataModule(
@@ -114,6 +153,9 @@ def train(cfg: dict, data_module=None, device: str = "cuda") -> TrainState:
             batch_size=cfg["batch_size"])
         dm.setup()
     num_classes = int(cfg.get("num_classes") or len(dm.classes))
+    multi_node = parallel.multi_node(cfg)
+    if multi_node:
+        dm.process_index, dm.process_count = rank, world
 
     model = build_classifier(cfg, num_classes).to(device)
     optimizer, schedule = build_optimizer_from_cfg(cfg, model)
@@ -126,7 +168,12 @@ def train(cfg: dict, data_module=None, device: str = "cuda") -> TrainState:
     ckpt = CheckpointManager(f"{version_dir}/checkpoints")
     gen = torch.Generator(device).manual_seed(int(cfg.get("seed", 0)))
     val_every = int(cfg.get("check_val_every_n_epoch", 5))
-    loader = dm.train_loader()
+    if multi_node:
+        loader = dm.train_loader(parallel.per_rank(dm.batch_size))
+    else:
+        loader = dm.train_loader()
+        if world > 1:
+            loader.split_rows(rank, world)
     for epoch in range(int(cfg["epochs"])):
         loader.set_epoch(epoch)
         t0, n, losses = time.time(), 0, []
@@ -137,18 +184,19 @@ def train(cfg: dict, data_module=None, device: str = "cuda") -> TrainState:
             n += len(batch["label"])
         mean_loss = float(torch.stack(losses).float().mean()) if losses \
             else float("nan")
-        print(f"epoch {epoch}: loss={mean_loss:.4f} "
-              f"({n / max(time.time() - t0, 1e-9):.1f} img/s)", flush=True)
+        rate = n * world / max(time.time() - t0, 1e-9)
+        if main:
+            print(f"epoch {epoch}: loss={mean_loss:.4f} ({rate:.1f} img/s)",
+                  flush=True)
 
         if (epoch + 1) % val_every == 0 and dm.val_db:
             correct, total = 0.0, 0
             for batch in dm.val_loader():
-                correct += float(eval_step(
-                    to_device(batch["image"], device),
-                    to_device(batch["label"], device)))
+                correct += _val_hits(eval_step, batch, device)
                 total += len(batch["label"])
             acc = correct / max(total, 1)
-            print(f"epoch {epoch}: val_acc={acc:.4f}")
+            if main:
+                print(f"epoch {epoch}: val_acc={acc:.4f}")
             ckpt.save_epoch(state, epoch, val_loss=1.0 - acc)
         ckpt.save_last(state, epoch)
     return state
@@ -159,7 +207,8 @@ def main(argv=None):
     parser.add_argument("--cfg", required=True, type=str, help="config file")
     parser.add_argument("--device", default="cuda", type=str)
     args = parser.parse_args(argv)
-    return train(get_configs(args.cfg), device=args.device)
+    cfg = get_configs(args.cfg)
+    return parallel.run(train, cfg, args.device, cfg, None, args.device)
 
 
 if __name__ == "__main__":

@@ -6,10 +6,16 @@ Counterpart of the repo's train_sbp.py (reference: train_sbp.py:82-88):
 
 ``--resume auto`` continues from the newest checkpoint of the config's
 ``save_dir``.
+
+With ``--device cuda`` it trains on every GPU that the config's
+``devices`` selects ('auto': all), one process each (``parallel.run``),
+or on the ranks of ``torchrun --nproc_per_node N -m
+pytorch_pose_estimation_tpu_torch.train_sbp --cfg ...``.
 """
 
 import argparse
 
+from . import parallel
 from .config import get_configs
 from .data import SBPCOCODataModule
 from .train import Trainer
@@ -43,7 +49,9 @@ def main(argv=None):
                         help="checkpoint to resume from, or 'auto'")
     parser.add_argument("--device", default="cuda", type=str)
     args = parser.parse_args(argv)
-    return train(get_configs(args.cfg), args.resume, args.device)
+    cfg = get_configs(args.cfg)
+    return parallel.run(train, cfg, args.device, cfg, args.resume,
+                        args.device)
 
 
 if __name__ == "__main__":

@@ -5,10 +5,16 @@ train_sbp_pis.py (reference: train_sbp_pis.py):
 
     python -m pytorch_pose_estimation_tpu_torch.train_sbp_pis \\
         --cfg configs/sbp_pis.yaml [--resume CKPT|auto] [--device cuda]
+
+With ``--device cuda`` it trains on every GPU that the config's
+``devices`` selects ('auto': all), one process each (``parallel.run``),
+or on the ranks of ``torchrun --nproc_per_node N -m
+pytorch_pose_estimation_tpu_torch.train_sbp_pis --cfg ...``.
 """
 
 import argparse
 
+from . import parallel
 from .config import get_configs
 from .data import SBPPISDataModule
 from .train import Trainer, resolve_device
@@ -42,7 +48,9 @@ def main(argv=None):
                         help="checkpoint to resume from, or 'auto'")
     parser.add_argument("--device", default="cuda", type=str)
     args = parser.parse_args(argv)
-    return train(get_configs(args.cfg), args.resume, args.device)
+    cfg = get_configs(args.cfg)
+    return parallel.run(train, cfg, args.device, cfg, args.resume,
+                        args.device)
 
 
 if __name__ == "__main__":

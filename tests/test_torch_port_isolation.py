@@ -36,9 +36,11 @@ print(bad)
 from pytorch_pose_estimation_tpu_torch.data import native_loader
 print(native_loader._tried)  # importing tried no build
 """
-# modules added with the device cache and the native loader
+# modules added with the device cache and the native loader, and with
+# data parallelism
 NEW_MODULES = ("data.native_loader", "train.device_cache",
-               "test_coco_keypoints_map", "models.hourglass")
+               "test_coco_keypoints_map", "models.hourglass", "parallel",
+               "parallel.mesh")
 
 
 def test_port_imports_without_jax_cv2_yaml_or_the_jax_package():
@@ -52,6 +54,22 @@ def test_port_imports_without_jax_cv2_yaml_or_the_jax_package():
         assert f"pytorch_pose_estimation_tpu_torch.{name}" in names, name
     assert bad.strip() == "[]"
     assert tried == "False"
+
+
+def _in_a_process_group() -> bool:
+    return torch.distributed.is_initialized()
+
+
+def test_launch_with_one_device_starts_no_process_group():
+    """One device: ``fn`` runs in this process, with no group, and the
+    helpers are the identity."""
+    from pytorch_pose_estimation_tpu_torch import parallel
+
+    assert parallel.launch(_in_a_process_group, ["cpu"]) == [False]
+    assert not torch.distributed.is_initialized()
+    assert (parallel.rank(), parallel.world_size()) == (0, 1)
+    x = torch.arange(6.0).reshape(3, 2)
+    assert parallel.local_rows(x) is x and parallel.gather_rows(x) is x
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
