@@ -114,11 +114,21 @@ non-zero, printing no result:
    (rank 0), the ranks' final states bitwise equal, and the last
    (val_loss, val_mAP) equals a one-process ``validate`` of rank 0's final
    weights (loss 1e-6, AP exactly); d. with two or more cards, 11b again
-   over NCCL with a card per rank, else "skipped: 1 card".
+   over NCCL with a card per rank, else "skipped: 1 card";
+12. the port learns: tests/test_convergence_e2e.py's recipe
+   (``tools.convergence``: configs/sbp_coco.yaml at 128x96 in, 32x24 maps,
+   batch 16, fp32, ``cache_device``, no CLAHE, mild augmentation, burn-in
+   10) on 16 synthetic images, the same set for train and val, in one
+   process (31 instances, 1 step an epoch), in rounds of 4 epochs (seed 7
+   + round), validated every ``LEARN_VAL_EVERY`` rounds, at most
+   ``LEARN_ROUNDS``: the APs, the round whose validation reached 0.55
+   (else the phase fails), the seconds, and the launch counts (set to 0
+   just before, read just after: K1 once per train and eval step, K2 once
+   per eval step).
 
 The last three lines of standard output: the card's name and power limit,
-one JSON object describing each kernel (launches summed over phases 4-10,
-and each rank's launches in 11c),
+one JSON object describing each kernel (launches summed over phases 4-10
+and 12, each rank's launches in 11c, and phase 12's alone),
 and ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
 ...}}``.  The configs are written inline with the values of
 configs/sbp_coco.yaml, spm_coco.yaml, sbp_pis.yaml and
@@ -168,6 +178,7 @@ from pytorch_pose_estimation_tpu_torch.pis import (HANDLE_ROI, NEG_MAX,
                                                    POS_MIN, FallingDown,
                                                    HandleGrip)
 from pytorch_pose_estimation_tpu_torch.profile_train_step import spm_people
+from pytorch_pose_estimation_tpu_torch.tools import convergence
 from pytorch_pose_estimation_tpu_torch.train import (Trainer,
                                                      build_device_cache,
                                                      build_model,
@@ -2146,6 +2157,62 @@ def phase_parallel(tmp, cache_cfg, device="cuda", ranks_on=("cuda:0",
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 12: the port learns
+# --------------------------------------------------------------------------
+
+# The JAX test's cap is 20 rounds (convergence.MAX_ROUNDS), but the JAX
+# test itself reads AP@.5 0.000 through its 20 rounds on the CPU, and the
+# port on the card through 100 (2 ranks): the recipe sits on the
+# all-background plateau (a train loss of about 22, the same to 4 decimals
+# on every run) until about step 4,300 (one process: round 1,080).  The cap
+# leaves room for that; a validation every LEARN_VAL_EVERY rounds (it
+# changes nothing in the training) keeps the phase short.
+LEARN_ROUNDS = 2500
+LEARN_VAL_EVERY = 10
+
+
+def phase_learns(tmp, device="cuda", max_rounds=LEARN_ROUNDS,
+                 val_every=LEARN_VAL_EVERY):
+    """Phase 12 (see the module docstring), with the launch counts set to
+    0 just before the rounds and read just after.  Returns the
+    launches."""
+    start = time.perf_counter()
+    root = os.path.join(tmp, "conv16")
+    convergence.make_sets(root, SYNTH_FIXTURE)
+    cfg = convergence.recipe_cfg(root)
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    out = io.StringIO()  # the Trainer's 4 epoch lines a round
+    try:
+        with contextlib.redirect_stdout(out):
+            r = convergence.run_rounds(cfg, device, max_rounds,
+                                       convergence.AP_THRESHOLD, val_every)
+    finally:
+        lines = out.getvalue().splitlines()
+        print("\n".join(lines[:2] + ["..."] + lines[-12:]))
+    launches = _counts()
+    shown = list(zip(r["rounds"], r["aps"]))
+    print("12: AP@.5 by round: " + ", ".join(
+        f"{i} {ap:.3f}" for i, ap in sorted(dict(shown[::10] + shown[-5:])
+                                            .items())))
+    print(f"12: best AP@.5 {r['best']:.3f}, crossed "
+          f"{convergence.AP_THRESHOLD} at round {r['crossed']} of at most "
+          f"{max_rounds}, validated every {val_every} ({r['steps']} train "
+          f"steps at batch {cfg['batch_size']}, one process on {device}); "
+          f"launches {launches}; the rounds took {r['seconds']:.1f} s, "
+          f"phase 12 {time.perf_counter() - start:.1f} s")
+    check(r["crossed"] is not None and r["best"] >= convergence.AP_THRESHOLD,
+          f"12: AP@.5 reached only {r['best']:.3f} in {max_rounds} rounds: "
+          f"the port does not learn the recipe")
+    evals = len(r["aps"]) * r["val_batches"]
+    check(launches == {"sbp_heatmaps_cuda": r["steps"] + evals,
+                       "decode_sbp_cuda": evals},
+          f"12: launches {launches} for {r['steps']} train and {evals} eval "
+          f"steps")
+    return launches
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -2188,6 +2255,10 @@ def main():
             print(f"launches over phases 4-10 (SBP serve, eval and fit; "
                   f"SPM; PIS; classifier; cache): {launches}")
             rank_launches = phase_parallel(tmp, cache_cfg)
+            learn_launches = phase_learns(tmp)
+            for name, n in learn_launches.items():
+                launches[name] += n
+            print(f"launches over phases 4-10 and 12: {launches}")
         finally:
             os.chdir(cwd)
 
@@ -2196,6 +2267,7 @@ def main():
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 "launches_per_rank_11c": [r[name] for r in rank_launches],
+                "launches_12": learn_launches[name],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bnd, "bound_by": by, "library_ms": None}
 

@@ -149,6 +149,8 @@ def extract_backbone(ckpt_path: str, out_path: str) -> str:
     sub = {k: v for k, v in load_state_dict_file(ckpt_path).items()
            if k.startswith(_BACKBONE)}
     out_path = os.path.abspath(out_path)
+    # the JAX package's orbax save makes the missing parents too
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
     _save_atomic(sub, out_path)
     return out_path
 

@@ -36,11 +36,12 @@ print(bad)
 from pytorch_pose_estimation_tpu_torch.data import native_loader
 print(native_loader._tried)  # importing tried no build
 """
-# modules added with the device cache and the native loader, and with
-# data parallelism
+# modules added with the device cache and the native loader, with data
+# parallelism, and with the accuracy path's tools
 NEW_MODULES = ("data.native_loader", "train.device_cache",
                "test_coco_keypoints_map", "models.hourglass", "parallel",
-               "parallel.mesh")
+               "parallel.mesh", "tools", "tools.ab_angle_groups",
+               "tools.tb_trajectory", "tools.convergence")
 
 
 def test_port_imports_without_jax_cv2_yaml_or_the_jax_package():
