@@ -124,16 +124,33 @@ non-zero, printing no result:
    ``LEARN_ROUNDS``: the APs, the round whose validation reached 0.55
    (else the phase fails), the seconds, and the launch counts (set to 0
    just before, read just after: K1 once per train and eval step, K2 once
-   per eval step).
+   per eval step);
+13. SPM at reference scale: configs/spm_synth_ref.yaml's corpus
+   (``tools.spm_ref``: 5,000 train images of 640x512 with 27,656
+   instances, 500 val with 2,774; the four counts checked) and its recipe
+   (``tools.spm_ref.SPM_SYNTH_REF``: 512 -> 128, batch 32, bf16,
+   ``augment_geometric``, ``cache_device`` with CLAHE in the step,
+   ``max_persons`` 10) through ``train_spm.train`` for 2 epochs (312
+   steps), validated after each on the 500 val images: the device cache's
+   rows (5,000), bytes and build time, 156 steps an epoch, each epoch's
+   images/s, each validation's seconds, the peak memory, finite losses, a
+   val_loss at epoch 1 below
+   epoch 0's, and 0 launches of K1 and K2 (set to 0 just before the fit,
+   read just after); then ``test_spm.test`` of the phase's ``last`` gives
+   epoch 1's val_loss (1e-4) and AP@.5 (exactly) again; the memo re-read
+   with the decoder broken; the geometric train step alone on a cached
+   batch, by host clock and split by CUDA events.  Only the epochs are cut
+   (from 200); the corpus and the recipe are the run's.
 
 The last three lines of standard output: the card's name and power limit,
 one JSON object describing each kernel (launches summed over phases 4-10
-and 12, each rank's launches in 11c, and phase 12's alone),
+and 12, each rank's launches in 11c, and phases 12's and 13's alone),
 and ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
 ...}}``.  The configs are written inline with the values of
-configs/sbp_coco.yaml, spm_coco.yaml, sbp_pis.yaml and
-darknet19_classifier.yaml, so PyYAML is not needed; phases 1-9 make their
-data in memory, phase 10 writes JPEG files with cv2.  Imports nothing of
+configs/sbp_coco.yaml, spm_coco.yaml, sbp_pis.yaml,
+darknet19_classifier.yaml and spm_synth_ref.yaml, so PyYAML is not needed;
+phases 1-9 make their data in memory, phases 10, 12 and 13 write JPEG
+files with cv2.  Imports nothing of
 JAX.
 """
 
@@ -155,8 +172,8 @@ import torch
 from pytorch_pose_estimation_tpu_torch import (optim, parallel,
                                                pis_falling_down_test_code,
                                                pis_handle_test_code,
-                                               saving_weights,
-                                               train_classifier)
+                                               saving_weights, test_spm,
+                                               train_classifier, train_spm)
 from pytorch_pose_estimation_tpu_torch.data import (HostLoader,
                                                     SBPCOCODataModule,
                                                     SPMCOCODataModule,
@@ -178,7 +195,7 @@ from pytorch_pose_estimation_tpu_torch.pis import (HANDLE_ROI, NEG_MAX,
                                                    POS_MIN, FallingDown,
                                                    HandleGrip)
 from pytorch_pose_estimation_tpu_torch.profile_train_step import spm_people
-from pytorch_pose_estimation_tpu_torch.tools import convergence
+from pytorch_pose_estimation_tpu_torch.tools import convergence, spm_ref
 from pytorch_pose_estimation_tpu_torch.train import (Trainer,
                                                      build_device_cache,
                                                      build_model,
@@ -2213,6 +2230,156 @@ def phase_learns(tmp, device="cuda", max_rounds=LEARN_ROUNDS,
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 13: SPM at reference scale
+# --------------------------------------------------------------------------
+
+REF_EPOCHS = 2  # of configs/spm_synth_ref.yaml's 200
+REF_LINES = re.compile(r"^(device cache: .*|epoch \d+: .*)$", re.M)
+
+
+def _ref_fit(cfg, device):
+    """``train_spm.train(cfg)``, its output captured; returns (state, the
+    output, each validation's exact (val_loss, val_mAP), each
+    validation's seconds, the fit's seconds)."""
+    vals, val_s = [], []
+    inner = trainer_module.validate
+
+    def recording(*args, **kwargs):
+        t0 = time.perf_counter()
+        vals.append(inner(*args, **kwargs))
+        val_s.append(time.perf_counter() - t0)
+        return vals[-1]
+
+    out = io.StringIO()
+    trainer_module.validate = recording
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            state = train_spm.train(cfg, device=device)
+        _sync(device)
+    finally:
+        trainer_module.validate = inner
+    return state, out.getvalue(), vals, val_s, time.perf_counter() - t0
+
+
+def _memo_only_data(cfg):
+    """The recipe's SPM data module (as ``train_spm.train`` makes it) with
+    its loader broken: a decode would raise."""
+    dm = SPMCOCODataModule(
+        cfg["train_path"], cfg["val_path"], cfg["img_dir"],
+        cfg["input_size"], cfg["output_size"], K, cfg["sigma"],
+        cfg["workers"], cfg["batch_size"], cfg["class_labels"],
+        max_persons=cfg["max_persons"])
+    dm.setup()
+    dm._loader = None
+    return dm
+
+
+def phase_spm_ref(tmp, device="cuda"):
+    """Phase 13 (see the module docstring).  Returns the launches of K1 and
+    K2 over the fit."""
+    start = time.perf_counter()
+    root = os.path.join(tmp, "spm_ref")
+    t0 = time.perf_counter()
+    corpus = spm_ref.make_corpus(root, SYNTH_FIXTURE)
+    print("13: corpus " + "; ".join(
+        f"{split} {n:,} images, {inst:,} instances"
+        for split, (_, n, inst) in corpus.items()) +
+        f" (the recipe's counts), written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = dict(spm_ref.SPM_SYNTH_REF, train_path=corpus["train2017"][0],
+               val_path=corpus["val2017"][0], img_dir=root,
+               epochs=REF_EPOCHS, save_dir=os.path.join(tmp, "saved_ref"),
+               trainer_options={"check_val_every_n_epoch": 1,
+                                "num_sanity_val_steps": 0})
+    n_train, n_val = corpus["train2017"][1], corpus["val2017"][1]
+    spe = n_train // cfg["batch_size"]
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    state, text, vals, val_s, dt = _ref_fit(cfg, device)
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if device == "cuda" else float("nan")
+    lines = REF_LINES.findall(text)
+    print("\n".join(f"13: {ln}" for ln in lines))
+    cache_line = next((ln for ln in lines if ln.startswith("device cache")),
+                      "")
+    rates = [float(m.group(2)) for m in EPOCH_LINE.finditer(text)]
+    losses = [float(v) for v in re.findall(
+        r"^epoch \d+: train_loss=(\S+)", text, re.M)]
+    print(f"13: train_spm.train, {REF_EPOCHS} epochs ({state.step} steps at "
+          f"batch {cfg['batch_size']}, {cfg['input_size']}x"
+          f"{cfg['input_size']}, augment_geometric) with {len(vals)} "
+          f"validations of {n_val} images in {dt:.1f} s host clock (cache "
+          f"build, model build and checkpoints included); epochs {rates} "
+          f"img/s; validations {[round(v, 2) for v in val_s]} s (JPEG "
+          f"decode, eval steps, peak NMS, OKS metric); peak device memory "
+          f"{peak:.2f} GiB; launches {launches}")
+    check(f"device cache: {n_train} instances" in cache_line and
+          f"{spe} steps/epoch" in cache_line,
+          f"13: the cache line {cache_line!r}: want {n_train} rows, {spe} "
+          f"steps an epoch")
+    check(state.step == REF_EPOCHS * spe and len(rates) == REF_EPOCHS,
+          f"13: {state.step} steps, {len(rates)} epoch lines")
+    check(len(losses) == REF_EPOCHS and all(np.isfinite(losses)) and
+          len(vals) == REF_EPOCHS and all(np.isfinite(v[0]) for v in vals),
+          f"13: losses {losses}, validations {vals}")
+    check(vals[-1][0] < vals[0][0],
+          f"13: val_loss did not fall: {[v[0] for v in vals]}")
+    check(all(n == 0 for n in launches.values()),
+          f"13: a kernel launched on the SPM path: {launches}")
+
+    last = os.path.join(cfg["save_dir"],
+                        "single-stage-pose-machines_spm-synth-ref",
+                        "version_0", "checkpoints", "last")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = test_spm.test(cfg, last, device)
+    want = vals[-1]
+    print(f"13: test_spm.test of last: val_loss={got[0]:.6f} "
+          f"val_mAP={got[1]:.6f}; epoch {REF_EPOCHS - 1}'s validation "
+          f"val_loss={want[0]:.6f} val_mAP={want[1]:.6f} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    check(abs(got[0] - want[0]) <= 1e-4 and got[1] == want[1],
+          f"13: test_spm of last {got} is not epoch {REF_EPOCHS - 1}'s "
+          f"validation {want}")
+
+    t0 = time.perf_counter()
+    cache = build_device_cache(_memo_only_data(cfg),
+                               cfg["batch_size"],
+                               keys=("image", "joints", "centers"),
+                               device=device)
+    _sync(device)
+    print(f"13: cache re-read from the memo alone in "
+          f"{time.perf_counter() - t0:.2f} s: {cache.n_total} rows, "
+          f"{cache.nbytes() / 2 ** 30:.2f} GiB ({cache.nbytes():,} bytes) "
+          f"on {device}")
+    check(cache.n_total == n_train and all(
+        t.device.type == torch.device(device).type
+        for t in cache._data.values()), "13: the memo's rows")
+
+    if device == "cuda":
+        step, _ = make_spm_steps(state.model, state.optimizer,
+                                 cfg["input_size"], cfg["output_size"], K,
+                                 float(cfg["sigma"]), cfg["conf_threshold"],
+                                 augment={"geometric": True,
+                                          "clahe_prob": 0.5},
+                                 max_persons=cfg["max_persons"])
+        batch = next(iter(cache.epoch_batches(0)))
+        gen = torch.Generator(device).manual_seed(13)
+        host_gen = torch.Generator().manual_seed(13)
+        del cache
+        time_step("spm ref (augment_geometric, cached batch)",
+                  cfg["batch_size"], lambda marker=None: step(
+                      batch, gen, host_gen, marker=marker))
+    print(f"phase 13 took {time.perf_counter() - start:.1f} s")
+    return launches
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -2259,6 +2426,7 @@ def main():
             for name, n in learn_launches.items():
                 launches[name] += n
             print(f"launches over phases 4-10 and 12: {launches}")
+            ref_launches = phase_spm_ref(tmp)
         finally:
             os.chdir(cwd)
 
@@ -2268,6 +2436,7 @@ def main():
                 "replaces": replaces, "launches": launches[name],
                 "launches_per_rank_11c": [r[name] for r in rank_launches],
                 "launches_12": learn_launches[name],
+                "launches_13": ref_launches[name],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bnd, "bound_by": by, "library_ms": None}
 

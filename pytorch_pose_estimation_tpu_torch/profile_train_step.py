@@ -5,7 +5,10 @@ default; bf16, sgd nesterov, device CLAHE) or the darknet19 classifier
 (64x64 input, 200 classes, batch 256, bf16, sgd nesterov, dropout):
 
     python -m pytorch_pose_estimation_tpu_torch.profile_train_step \\
-        [--kind sbp|spm|classifier] [--batch N] [--steps 5]
+        [--kind sbp|spm|classifier] [--geometric] [--batch N] [--steps 5]
+
+``--geometric`` gives SPM SBP's rotate + crop + jitter in fp32
+(``augment_geometric``, as configs/spm_synth_ref.yaml).
 
 Prints the card's name and power limit, the step time by host clock
 (synchronized, after warm-up), each part's device time by CUDA events
@@ -69,48 +72,73 @@ def _device_ms(fn, n=5) -> float:
     return start.elapsed_time(end) / n
 
 
-def _augment_parts(batch, gen, host_gen) -> dict:
-    """The augmentation's parts at the train step's inputs and draws."""
+def _augment_parts(batch, gen, host_gen, hw=(256, 192),
+                   dtype=torch.bfloat16, **options) -> dict:
+    """The geometric augmentation's parts at the train step's inputs and
+    draws (``options``: ``sample_augment``'s), jitter and crop in
+    ``dtype``."""
     b = batch["image"].shape[0]
-    draws = image.sample_augment(gen, b, (256, 192), clahe_prob=0.5,
-                                 host_gen=host_gen)
+    draws = image.sample_augment(gen, b, hw, clahe_prob=0.5,
+                                 host_gen=host_gen, **options)
     imgs = image.normalize_batch(batch["image"])
-    jit_in = imgs.to(torch.bfloat16)
+    jit_in = imgs.to(dtype)
+    name = str(dtype).removeprefix("torch.")
     return {
         "normalize": _device_ms(lambda: image.normalize_batch(
             batch["image"])),
         "rotation": _device_ms(lambda: image.rotate_shear3_grouped(
-            imgs, draws.angles, 128.0, 96.0)),
+            imgs, draws.angles, hw[0] / 2.0, hw[1] / 2.0)),
         "clahe": _device_ms(lambda: image.clahe_luma_batch(
             imgs, draws.clahe, draws.clahe_clip)),
-        "color jitter (bf16)": _device_ms(lambda: image.color_jitter_batch(
-            jit_in, draws.brightness, draws.contrast, draws.saturation,
-            draws.hue, draws.jitter_order, draws.jitter)),
-        "crop": _device_ms(lambda: image.crop_resize_mxu(
+        f"color jitter ({name})": _device_ms(
+            lambda: image.color_jitter_batch(
+                jit_in, draws.brightness, draws.contrast, draws.saturation,
+                draws.hue, draws.jitter_order, draws.jitter)),
+        f"crop ({name})": _device_ms(lambda: image.crop_resize_mxu(
             jit_in, draws.x0, draws.y0, draws.cw, draws.ch)),
         "draws": _device_ms(lambda: image.sample_augment(
-            gen, b, (256, 192), clahe_prob=0.5, host_gen=host_gen))}
+            gen, b, hw, clahe_prob=0.5, host_gen=host_gen, **options))}
+
+
+def _spm_geometric_parts(batch, gen, host_gen) -> dict:
+    """The SPM step's geometric augmentation (``make_spm_steps``'
+    defaults: fp32 images, rotate_limit 30, scale (0.6, 1), ratio (0.75,
+    1.33)) and its targets, part by part."""
+    return dict(_augment_parts(batch, gen, host_gen, (512, 512),
+                               torch.float32, rotate_limit=30.0,
+                               scale_range=(0.6, 1.0),
+                               ratio_range=(0.75, 1.33)),
+                **_spm_target_parts(batch))
 
 
 def _spm_parts(batch, gen, host_gen) -> dict:
-    """The SPM step's augmentation and targets, part by part."""
+    """The SPM step's photometric augmentation and targets, part by
+    part."""
     b = batch["image"].shape[0]
     draws = image.sample_photometric(gen, b, clahe_prob=0.5,
                                      host_gen=host_gen)
     imgs = image.normalize_batch(batch["image"])
-    c = torch.floor(batch["centers"] * 0.25)
-    j = torch.floor(batch["joints"] * 0.25)
-    masks = target_ops.spm_masks(c, 128, 1.0)
     return {
         "normalize": _device_ms(lambda: image.normalize_batch(
             batch["image"])),
         "clahe": _device_ms(lambda: image.clahe_luma_batch(
             imgs, draws.clahe, draws.clahe_clip)),
-        "color jitter (bf16)": _device_ms(lambda: image.color_jitter_batch(
-            imgs.to(torch.bfloat16), draws.brightness, draws.contrast,
-            draws.saturation, draws.hue, draws.jitter_order, draws.jitter)),
+        "color jitter (bfloat16)": _device_ms(
+            lambda: image.color_jitter_batch(
+                imgs.to(torch.bfloat16), draws.brightness, draws.contrast,
+                draws.saturation, draws.hue, draws.jitter_order,
+                draws.jitter)),
         "draws": _device_ms(lambda: image.sample_photometric(
             gen, b, clahe_prob=0.5, host_gen=host_gen)),
+        **_spm_target_parts(batch)}
+
+
+def _spm_target_parts(batch) -> dict:
+    """The SPM targets' parts at 512 -> 128."""
+    c = torch.floor(batch["centers"] * 0.25)
+    j = torch.floor(batch["joints"] * 0.25)
+    masks = target_ops.spm_masks(c, 128, 1.0)
+    return {
         "targets: root heatmap": _device_ms(
             lambda: target_ops.spm_heatmaps(c, 128, 1, 1.0)),
         "targets: masks": _device_ms(
@@ -163,8 +191,9 @@ def _classifier_setup(b: int, rng):
                   for k, v in batch.items()}, parts
 
 
-def _setup(kind: str, b: int, rng):
-    """(step, batch on the card, parts timer) at full width."""
+def _setup(kind: str, b: int, rng, geometric: bool = False):
+    """(step, batch on the card, parts timer) at full width; SPM with
+    ``augment_geometric`` where ``geometric``."""
     if kind == "classifier":
         return _classifier_setup(b, rng)
     cfg = {"num_keypoints": 17, "precision": "bf16", "seed": 0}
@@ -173,12 +202,13 @@ def _setup(kind: str, b: int, rng):
                               momentum=0.9, weight_decay=5e-3, nesterov=True)
     if kind == "spm":
         step, _ = make_spm_steps(model, opt, 512, 128, 17, 1.0, 0.5,
-                                 augment={"clahe_prob": 0.5})
+                                 augment={"clahe_prob": 0.5,
+                                          "geometric": geometric})
         joints, centers = spm_people(rng, b)
         batch = {"image": rng.randint(0, 256, (b, 512, 512, 3),
                                       dtype=np.uint8),
                  "joints": joints, "centers": centers}
-        parts = _spm_parts
+        parts = _spm_geometric_parts if geometric else _spm_parts
     else:
         step, _ = make_sbp_steps(model, opt, [256, 192], (64, 48), 17, 2.0,
                                  0.25, augment={"clahe_prob": 0.5})
@@ -201,7 +231,12 @@ def main(argv=None):
                         help="default 256 for SBP and the classifier, 32 "
                              "for SPM")
     parser.add_argument("--steps", type=int, default=5)
+    parser.add_argument("--geometric", action="store_true",
+                        help="SPM with augment_geometric (SBP's rotate + "
+                             "crop + jitter, as configs/spm_synth_ref.yaml)")
     args = parser.parse_args(argv)
+    if args.geometric and args.kind != "spm":
+        parser.error("--geometric is an SPM option")
     if not torch.cuda.is_available():
         raise SystemExit("profile_train_step: CUDA is not available")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -211,7 +246,8 @@ def main(argv=None):
 
     b = args.batch or (32 if args.kind == "spm" else 256)
     step, batch, parts_alone = _setup(args.kind, b,
-                                      np.random.RandomState(0))
+                                      np.random.RandomState(0),
+                                      args.geometric)
     gen = torch.Generator("cuda").manual_seed(0)
     host_gen = torch.Generator().manual_seed(0)
     for _ in range(3):
@@ -223,7 +259,8 @@ def main(argv=None):
         step(batch, gen, host_gen)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / args.steps * 1e3
-    print(f"{args.kind} train step at batch {b}: {step_ms:.2f} ms host clock "
+    label = args.kind + (" (augment_geometric)" if args.geometric else "")
+    print(f"{label} train step at batch {b}: {step_ms:.2f} ms host clock "
           f"({b * 1e3 / step_ms:.0f} images/s), mean of {args.steps}")
 
     parts = defaultdict(float)

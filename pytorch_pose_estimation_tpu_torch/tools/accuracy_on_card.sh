@@ -1,8 +1,12 @@
 #!/usr/bin/env bash
 # The port's accuracy path on one GPU, from the repo root:
 #
+#   [ARMS="sbp spm"] [SPM_EPOCHS=90] \
 #   bash pytorch_pose_estimation_tpu_torch/tools/accuracy_on_card.sh \
 #       [OUT_DIR=saved/accuracy] [PIS_SEEDS="0"]
+#
+# ARMS selects the arms: "sbp" runs steps a-d, "spm" step e; both by
+# default.
 #
 # a. the ref-scale synthetic corpus (tests/synth_fixture.py, by its path:
 #    `-m tests.synth_fixture` can find another package named `tests`);
@@ -14,7 +18,16 @@
 #    then for each seed of PIS_SEEDS train_sbp_pis on a copy of
 #    configs/sbp_pis_synth.yaml (under $TMPDIR) with 140 epochs and that
 #    `seed`, its trajectory, and both behaviour harnesses on its
-#    `best`.
+#    `best`;
+# e. SPM at reference scale: configs/spm_synth_ref.yaml's corpus
+#    (tools.spm_ref corpus: 5,000 train images with 27,656 instances, 500
+#    val with 2,774, or it fails), a copy of the YAML under $TMPDIR with
+#    `epochs: $SPM_EPOCHS` and nothing else changed, train_spm --resume
+#    auto on it (about an hour of card time for 90 epochs at about 255 ms
+#    a step; a later run of the script resumes from the newest
+#    checkpoint, its log in spm_train_<N>.log), the trajectory at 156
+#    steps an epoch over every attempt's log, test_spm and inference_spm
+#    --limit 8 of the newest run's `best`.
 # Every command's output goes to OUT_DIR/<step>.log; OUT_DIR/summary.txt
 # collects the numbers.  Corpus, memo and checkpoints stay under ./data,
 # ./saved and ./saved_ab.
@@ -22,6 +35,8 @@ set -uo pipefail
 OUT=${1:-saved/accuracy}
 PIS_SEEDS=${2:-0}
 PIS_EPOCHS=140  # the JAX run stopped at about epoch 135
+ARMS=${ARMS:-sbp spm}
+SPM_EPOCHS=${SPM_EPOCHS:-90}  # JAX's last validation was at epoch 89
 PY=${PYTHON:-python3}
 M=pytorch_pose_estimation_tpu_torch
 mkdir -p "$OUT"
@@ -41,7 +56,17 @@ say "card: $(nvidia-smi --query-gpu=name,power.limit --format=csv,noheader)"
 say "$($PY -c 'import sys, torch; print(sys.version.split()[0], torch.__version__, torch.version.cuda)')"
 $PY -c 'import tensorboardX' 2>/dev/null && TB=1 || TB=0
 say "tensorboardX importable: $TB"
+say "arms: $ARMS"
+arm() { [[ " $ARMS " == *" $1 "* ]]; }
+trajectory() {  # trajectory LOGDIR LOG STEPS_PER_EPOCH
+    if [ "$TB" = 1 ]; then
+        $PY -m $M.tools.tb_trajectory "$1" --steps-per-epoch "$3"
+    else
+        $PY -m $M.tools.tb_trajectory --log "$2" --steps-per-epoch "$3"
+    fi
+}
 
+if arm sbp; then
 # a. the corpus
 step corpus $PY tests/synth_fixture.py ./data/ref_scale 5000 250 --hard
 
@@ -53,13 +78,6 @@ say "sbp result: $RESULT"
 VDIR=$(echo "$RESULT" | $PY -c 'import json, sys; print(json.load(sys.stdin)["version_dir"])')
 SPE=$(grep -oE "[0-9]+ steps/epoch" "$OUT/sbp_g16.log" | head -n 1 | cut -d' ' -f1)
 grep -E "^epoch [0-9]+: train_loss" "$OUT/sbp_g16.log" >> "$SUM"
-trajectory() {  # trajectory LOGDIR LOG STEPS_PER_EPOCH
-    if [ "$TB" = 1 ]; then
-        $PY -m $M.tools.tb_trajectory "$1" --steps-per-epoch "$3"
-    else
-        $PY -m $M.tools.tb_trajectory --log "$2" --steps-per-epoch "$3"
-    fi
-}
 say "sbp trajectory (steps per epoch $SPE):"
 trajectory "$VDIR" "$OUT/sbp_g16.log" "$SPE" | tee -a "$SUM"
 BEST="$VDIR/checkpoints/best"
@@ -98,4 +116,31 @@ for SEED in $PIS_SEEDS; do
     say "handle harness, seed $SEED:"; tail -n 2 "$OUT/handle_s$SEED.log" | tee -a "$SUM"
     say "fall harness, seed $SEED:"; tail -n 3 "$OUT/fall_s$SEED.log" | tee -a "$SUM"
 done
+fi
+
+if arm spm; then
+# e. SPM at reference scale
+step spm_corpus $PY -m $M.tools.spm_ref corpus ./data/spm_ref
+tee -a "$SUM" < "$OUT/spm_corpus.log"
+SPM_CFG=$(mktemp -d)/spm_synth_ref.yaml
+step spm_config $PY -m $M.tools.spm_ref config "$SPM_CFG" --epochs "$SPM_EPOCHS"
+say "spm config: $SPM_CFG, $(diff configs/spm_synth_ref.yaml "$SPM_CFG" | grep -E '^[<>]' | tr '\n' ' ')"
+N=1; while [ -e "$OUT/spm_train_$N.log" ]; do N=$((N + 1)); done
+step spm_train_$N $PY -u -m $M.train_spm --cfg "$SPM_CFG" --resume auto
+grep -E "auto-resume|resuming|device cache" "$OUT/spm_train_$N.log" | tee -a "$SUM"
+ALL="$OUT/spm_train_all.log"
+for F in $(ls "$OUT"/spm_train_[0-9]*.log | sort -V); do cat "$F"; done > "$ALL"
+grep -E "^epoch [0-9]+: train_loss" "$ALL" >> "$SUM"
+SDIR=$(ls -d ./saved/single-stage-pose-machines_spm-synth-ref/version_* | sort -V | tail -n 1)
+SSPE=$(grep -oE "[0-9]+ steps/epoch" "$ALL" | head -n 1 | cut -d' ' -f1)
+say "spm trajectory ($SDIR, steps per epoch $SSPE):"
+trajectory "$SDIR" "$ALL" "$SSPE" | tee -a "$SUM"
+SBEST="$SDIR/checkpoints/best"
+say "spm best: $(cat "$SBEST.meta.json")"
+step test_spm $PY -u -m $M.test_spm --cfg "$SPM_CFG" --ckpt "$SBEST"
+grep -E "AP @|AR @|val_loss=" "$OUT/test_spm.log" | tee -a "$SUM"
+step inference_spm $PY -u -m $M.inference_spm --cfg "$SPM_CFG" --ckpt "$SBEST" \
+    --save-dir "$OUT/spm_vis" --limit 8
+say "inference_spm: $(grep -c '^Inference:' "$OUT/inference_spm.log") images, $(grep '^Inference:' "$OUT/inference_spm.log" | tr '\n' ' ')"
+fi
 say "done"

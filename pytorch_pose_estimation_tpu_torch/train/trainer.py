@@ -11,7 +11,10 @@ contract (train_sbp.py:55-79):
 * TensorBoard logs (train_loss / val_loss / val_mAP / lr-step) when
   tensorboardX is installed,
 * checkpoints under ``saved/<model>_<dataset>/version_N/checkpoints`` with
-  best-by-val_loss and last, resume and ``resume="auto"``,
+  best-by-val_loss and last, resume and ``resume="auto"`` (a checkpoint
+  holds the augmentation generators' states too, so a fit interrupted at
+  an epoch's end and resumed ends bitwise where the uninterrupted fit
+  does; the JAX package folds the epoch into its key instead),
 * early stopping on val_loss with patience 30 validation rounds,
 * an optional warm start of the backbone from ``backbone_pretrained``, then
   an optional partial warm start from ``model_pretrained``.
@@ -513,6 +516,13 @@ class Trainer:
             resume = mesh.broadcast_object(
                 self._find_auto_resume() if self.main else None)
             self._say(f"auto-resume: {resume or 'no checkpoint found'}")
+        # the train step's draws; every checkpoint holds the generators'
+        # states, so a resumed fit continues the uninterrupted fit's draws
+        # (one written without them starts the stream again)
+        seed = int(cfg.get("seed", 0)) * 1000003
+        gen = torch.Generator(self.device).manual_seed(seed)
+        host_gen = torch.Generator().manual_seed(seed)
+        self.state.generators = (gen, host_gen)
         start_epoch = 0
         if resume:
             # continue the run: the epoch from the checkpoint's meta, the
@@ -539,12 +549,6 @@ class Trainer:
                 self.eval_step(self._device_batch(batch, self.keys))
             self.model.train()
             self._say(f"sanity validation: {sanity} batch(es) ok")
-
-        # a resumed run draws a fresh augmentation stream instead of
-        # replaying the first epochs' draws
-        seed = int(cfg.get("seed", 0)) * 1000003 + start_epoch
-        gen = torch.Generator(self.device).manual_seed(seed)
-        host_gen = torch.Generator().manual_seed(seed)
 
         best_val = float("inf")
         bad_rounds = 0

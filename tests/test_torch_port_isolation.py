@@ -37,11 +37,12 @@ from pytorch_pose_estimation_tpu_torch.data import native_loader
 print(native_loader._tried)  # importing tried no build
 """
 # modules added with the device cache and the native loader, with data
-# parallelism, and with the accuracy path's tools
+# parallelism, with the accuracy path's tools and with SPM at reference
+# scale
 NEW_MODULES = ("data.native_loader", "train.device_cache",
                "test_coco_keypoints_map", "models.hourglass", "parallel",
                "parallel.mesh", "tools", "tools.ab_angle_groups",
-               "tools.tb_trajectory", "tools.convergence")
+               "tools.tb_trajectory", "tools.convergence", "tools.spm_ref")
 
 
 def test_port_imports_without_jax_cv2_yaml_or_the_jax_package():
