@@ -140,11 +140,32 @@ non-zero, printing no result:
    epoch 1's val_loss (1e-4) and AP@.5 (exactly) again; the memo re-read
    with the decoder broken; the geometric train step alone on a cached
    batch, by host clock and split by CUDA events.  Only the epochs are cut
-   (from 200); the corpus and the recipe are the run's.
+   (from 200); the corpus and the recipe are the run's;
+14. height-sharded inference (``parallel.spatial``), two ranks both on
+   cuda:0 over gloo, batch 1, weights seeded and calibrated (BN running
+   statistics from 16 seeded images, the head scaled so that the logits lie
+   within +-1 there) and saved, so that every process loads the same file:
+   a. SBP at 256x192 in fp32 (TF32 off): the gathered logits against the
+   one-process ``load_for_inference`` logits (rtol 2e-4, atol 2e-5,
+   tests/test_parallel.py's), and K2 (``decode_sbp_fast`` on the card) on
+   the gathered logits against the one-process ``load_sbp_predictor``'s
+   joints, a channel whose top two sigmoid values lie within 1e-5 allowed
+   to differ (counted and printed); b. SPM at 512x512 in fp32: the logits
+   as in a, and ``decode_spm_batch``'s roots at the one-process decode's
+   pixels and its joints within what the logit tolerance allows; c. SBP
+   in bf16 (the default):
+   the largest logit gap over the largest logit and the share of K2's
+   joints that agree (figures, not gates); d. with two or more cards, a
+   again over NCCL with a card per rank, else "skipped: 1 card".  Printed:
+   the one-process forward's ms, each rank's sharded forward ms and the ms
+   of its exchanges, and the halo bytes a forward sends (two ranks sharing
+   one card: not a scaling figure).  The launch counts are set to 0 just
+   before the phase and read just after.
 
 The last three lines of standard output: the card's name and power limit,
 one JSON object describing each kernel (launches summed over phases 4-10
-and 12, each rank's launches in 11c, and phases 12's and 13's alone),
+and 12, each rank's launches in 11c, and phases 12's, 13's and 14's
+alone),
 and ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
 ...}}``.  The configs are written inline with the values of
 configs/sbp_coco.yaml, spm_coco.yaml, sbp_pis.yaml,
@@ -2380,6 +2401,254 @@ def phase_spm_ref(tmp, device="cuda"):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 14: height-sharded inference
+# --------------------------------------------------------------------------
+
+SPATIAL_RANKS = ("cuda:0", "cuda:0")
+SPATIAL_RTOL, SPATIAL_ATOL = 2e-4, 2e-5  # tests/test_parallel.py's
+TIE = 1e-5  # top-two sigmoid gap under which fp32 noise may flip argmax
+SPATIAL_REPS = 10
+
+
+def _calibrated_ckpt(cfg, kind, path, device):
+    """Seeded weights whose BN running statistics are the batch statistics
+    of 16 seeded images and whose head is scaled so that the logits lie
+    within +-1 on them (at the init's statistics they shrink to ~1e-5),
+    saved to ``path``."""
+    model = build_model(dict(cfg, precision="fp32"), kind).to(device)
+    size = cfg["input_size"]
+    h, w = (size, size) if kind == "spm" else size
+    images = np.random.RandomState(14).randint(0, 256, (16, h, w, 3),
+                                               dtype=np.uint8)
+    x = trainer_module._images(images, device)
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    with torch.no_grad():
+        for m in bns:
+            m.momentum = 1.0
+        model.train()(x)
+        for m in bns:
+            m.momentum = 0.1
+        getattr(model, f"{kind}_head")[0].weight /= \
+            model.eval()(x).abs().max()
+    torch.save(model.state_dict(), path)
+    return path
+
+
+def _spatial_case(case, device):
+    """One model's sharded forward in a rank: the gathered logits, the
+    forward's ms (host clock, synchronized, over ``SPATIAL_REPS`` after
+    one) and one forward's exchange statistics."""
+    model = load_model(case["cfg"], case["ckpt"], device, case["kind"])
+    x = trainer_module._images(case["images"], device)
+    with torch.no_grad():
+        rows = parallel.spatial_rows(x)
+        parallel.spatial_forward(model, rows)
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(SPATIAL_REPS):
+            parallel.spatial_forward(model, rows)
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3 / SPATIAL_REPS
+        stats = {}
+        logits = parallel.gather_spatial(
+            parallel.spatial_forward(model, rows, stats))
+    return {"logits": logits.cpu(), "ms": ms, "stats": stats,
+            "rows": tuple(rows.shape)}
+
+
+def _phase14_rank(spec):
+    return {"rank": parallel.rank(),
+            **{name: _spatial_case(case, spec["device"])
+               for name, case in spec["cases"].items()}}
+
+
+def _one_process(case, device):
+    """The one-process ``load_for_inference`` logits and forward ms."""
+    _, forward = load_for_inference(case["cfg"], case["ckpt"], case["kind"],
+                                    device)
+    logits = forward(case["images"])
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(SPATIAL_REPS):
+        forward(case["images"])
+    _sync(device)
+    return logits, (time.perf_counter() - t0) * 1e3 / SPATIAL_REPS
+
+
+def _logit_tol(want):
+    """The logit tolerance at the largest logit: what it lets a sigmoid or
+    tanh of a logit move, times their largest slope."""
+    return SPATIAL_ATOL + SPATIAL_RTOL * float(want.abs().max())
+
+
+def _logit_gap(label, got, want, gate=True):
+    diff = (got - want).abs()
+    scale = float(want.abs().max())
+    bad = int((diff > SPATIAL_ATOL + SPATIAL_RTOL * want.abs()).sum())
+    print(f"{label}: gathered logits {tuple(got.shape)} vs one process: max "
+          f"|logit| {scale:.4g}, max diff {float(diff.max()):.3g} "
+          f"({float(diff.max()) / scale:.3g} of the largest logit); "
+          f"{bad} of {want.numel()} outside rtol {SPATIAL_RTOL} atol "
+          f"{SPATIAL_ATOL}")
+    if gate:
+        check(bool(torch.isfinite(got).all()) and bad == 0,
+              f"{label}: the gathered logits differ from one process's")
+    return float(diff.max()) / scale
+
+
+def _near_ties(logits):
+    """Per (image, channel): whether its top two sigmoid values lie within
+    ``TIE``."""
+    top = torch.sigmoid(logits.flatten(2)).topk(2, dim=2).values
+    return (top[..., 0] - top[..., 1]) < TIE
+
+
+def _print_ranks(label, ranks, name, shared):
+    for r in ranks:
+        c = r[name]
+        st = c["stats"]
+        print(f"{label} rank {r['rank']}: rows {c['rows']}, sharded forward "
+              f"{c['ms']:.2f} ms ({shared}); one forward: "
+              f"{st['exchanges']} exchanges in "
+              f"{st['exchange_s'] * 1e3:.2f} ms, {st['halo_bytes']:,} halo "
+              f"bytes sent ({st['halo_bytes'] // 2:,} per boundary and "
+              f"direction)")
+
+
+def _check_sbp_decode(label, logits, ckpt_cfg, images, device):
+    """K2 on the gathered logits against the one-process predictor's
+    joints; returns (channels that differ, near ties among them)."""
+    predict = load_sbp_predictor(ckpt_cfg["cfg"], ckpt_cfg["ckpt"], device)
+    want = predict(images)
+    before = kernels.decode_sbp_cuda.launches
+    got = decode_ops.decode_sbp_fast(logits.to(device),
+                                     int(ckpt_cfg["cfg"]["input_size"][1]),
+                                     float(ckpt_cfg["cfg"]["conf_threshold"]),
+                                     True)
+    _sync(device)
+    check(kernels.decode_sbp_cuda.launches == before + 1,
+          f"{label}: K2 did not decode the gathered logits")
+    moved = (got[..., :2] != want[..., :2]).any(-1).cpu()
+    conf_gap = float((got[..., 2] - want[..., 2]).abs().max())
+    ties = _near_ties(logits)
+    n_ties = int(ties.sum())
+    print(f"{label}: K2 on the gathered logits: {int(moved.sum())} of "
+          f"{moved.numel()} joints at another pixel than the one-process "
+          f"predictor's, {n_ties} channels are near ties (top two sigmoid "
+          f"values within {TIE}); confidences at most {conf_gap:.3g} apart")
+    check(bool((~moved | ties).all()) and
+          conf_gap <= 0.25 * _logit_tol(logits),
+          f"{label}: a joint that is not a near tie decoded elsewhere")
+    return int(moved.sum()), n_ties
+
+
+def phase_spatial(tmp, device="cuda", ranks_on=SPATIAL_RANKS, sbp_cfg=CFG,
+                  spm_cfg=SPM_CFG):
+    """Phase 14 (see the module docstring).  Returns the kernels'
+    launches over the phase."""
+    start = time.perf_counter()
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    bf16_cfg = dict(sbp_cfg, precision="bf16")
+    sbp_cfg = dict(sbp_cfg, precision="fp32")
+    spm_cfg = dict(spm_cfg, precision="fp32")
+    s_in, width = spm_cfg["input_size"], int(sbp_cfg["input_size"][1])
+    rng = np.random.RandomState(140)
+    cases = {
+        "sbp": {"cfg": sbp_cfg, "kind": "sbp",
+                "ckpt": _calibrated_ckpt(sbp_cfg, "sbp", os.path.join(
+                    tmp, "p14_sbp.pt"), device),
+                "images": rng.randint(0, 256, (1, *sbp_cfg["input_size"], 3),
+                                      np.uint8)},
+        "spm": {"cfg": spm_cfg, "kind": "spm",
+                "ckpt": _calibrated_ckpt(spm_cfg, "spm", os.path.join(
+                    tmp, "p14_spm.pt"), device),
+                "images": rng.randint(0, 256, (1, s_in, s_in, 3),
+                                      np.uint8)}}
+    cases["sbp_bf16"] = dict(cases["sbp"], cfg=bf16_cfg)
+    one = {name: _one_process(case, device) for name, case in cases.items()}
+    for name, (logits, ms) in one.items():
+        print(f"14: one-process {name} forward at batch 1: {ms:.2f} ms host "
+              f"clock over {SPATIAL_REPS} after one")
+    t0 = time.perf_counter()
+    ranks = parallel.launch(
+        _phase14_rank, list(ranks_on), "gloo",
+        args=({"device": device, "cases": cases},),
+        timeout=datetime.timedelta(seconds=RANK_TIMEOUT))
+    shared = "two ranks sharing one card: not a scaling figure"
+    print(f"14: {len(ranks)} ranks on {ranks_on[0]} over gloo, started and "
+          f"run in {time.perf_counter() - t0:.1f} s")
+
+    # 14a
+    _print_ranks("14a", ranks, "sbp", shared)
+    logits = ranks[0]["sbp"]["logits"]
+    check(all(torch.equal(r["sbp"]["logits"], logits) for r in ranks),
+          "14a: the ranks' gathered logits differ")
+    check(ranks[0]["sbp"]["stats"]["exchanges"] == 15,
+          f"14a: {ranks[0]['sbp']['stats']['exchanges']} exchanges, want 15")
+    _logit_gap("14a sbp fp32", logits, one["sbp"][0].cpu())
+    _check_sbp_decode("14a", logits, cases["sbp"], cases["sbp"]["images"],
+                      device)
+
+    # 14b
+    _print_ranks("14b", ranks, "spm", shared)
+    logits = ranks[0]["spm"]["logits"]
+    _logit_gap("14b spm fp32", logits, one["spm"][0].cpu())
+    roots, joints = decode_ops.decode_spm_batch(
+        logits.to(device), s_in, 1.0, spm_cfg["conf_threshold"], True, S_P)
+    want_roots, want_joints = decode_ops.decode_spm_batch(
+        one["spm"][0], s_in, 1.0, spm_cfg["conf_threshold"], True, S_P)
+    found = want_roots[..., 2] >= 0
+    same = torch.equal(roots[..., :2], want_roots[..., :2])
+    score_gap = float((roots[..., 2] - want_roots[..., 2]).abs().max())
+    joint_gap = float((joints - want_joints)[..., :2].abs().max())
+    # a joint is root + tanh(logit) * sqrt(2) S map pixels, times s_in / S
+    tol = _logit_tol(one["spm"][0])
+    px = float(np.sqrt(2.0)) * s_in * tol
+    print(f"14b: decode_spm_batch of the gathered logits: "
+          f"{int(found.sum())} persons found, roots at the one-process "
+          f"decode's pixels: {same}, their scores at most {score_gap:.3g} "
+          f"apart; joints at most {joint_gap:.3g} px apart (the logit "
+          f"tolerance allows {px:.3g})")
+    check(int(found.sum()) > 0 and same and score_gap <= 0.25 * tol and
+          joint_gap <= px, "14b: the SPM decode differs from one process's")
+
+    # 14c
+    _print_ranks("14c", ranks, "sbp_bf16", shared)
+    logits = ranks[0]["sbp_bf16"]["logits"]
+    rel = _logit_gap("14c sbp bf16 (a figure, not a gate)", logits,
+                     one["sbp_bf16"][0].cpu(), gate=False)
+    got = decode_ops.decode_sbp_fast(logits.to(device), width,
+                                     bf16_cfg["conf_threshold"], True)
+    want = decode_ops.decode_sbp_fast(one["sbp_bf16"][0], width,
+                                      bf16_cfg["conf_threshold"], True)
+    agree = float((got[..., :2] == want[..., :2]).all(-1).float().mean())
+    print(f"14c: bf16: largest logit gap {rel:.3g} of the largest logit; "
+          f"{agree:.1%} of K2's joints agree with one process's")
+
+    # 14d
+    if torch.device(device).type == "cuda" and \
+            torch.cuda.device_count() >= 2:
+        ranks = parallel.launch(
+            _phase14_rank, ["cuda:0", "cuda:1"], "nccl",
+            args=({"device": device, "cases": {"sbp": cases["sbp"]}},),
+            timeout=datetime.timedelta(seconds=RANK_TIMEOUT))
+        _print_ranks("14d", ranks, "sbp", "one card a rank")
+        _logit_gap("14d sbp fp32 over NCCL", ranks[0]["sbp"]["logits"],
+                   one["sbp"][0].cpu())
+        _check_sbp_decode("14d", ranks[0]["sbp"]["logits"], cases["sbp"],
+                          cases["sbp"]["images"], device)
+    else:
+        print("14d NCCL across cards: skipped: 1 card")
+    launches = _counts()
+    print(f"14: launches {launches}; phase 14 took "
+          f"{time.perf_counter() - start:.1f} s")
+    check(launches["decode_sbp_cuda"] > 0,
+          "14: K2 never launched in phase 14")
+    return launches
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -2427,6 +2696,7 @@ def main():
                 launches[name] += n
             print(f"launches over phases 4-10 and 12: {launches}")
             ref_launches = phase_spm_ref(tmp)
+            spatial_launches = phase_spatial(tmp)
         finally:
             os.chdir(cwd)
 
@@ -2437,6 +2707,7 @@ def main():
                 "launches_per_rank_11c": [r[name] for r in rank_launches],
                 "launches_12": learn_launches[name],
                 "launches_13": ref_launches[name],
+                "launches_14": spatial_launches[name],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bnd, "bound_by": by, "library_ms": None}
 

@@ -1,4 +1,5 @@
-from .convert import from_jax_variables, load_state_dict_file
+from .convert import (from_jax_opt_state, from_jax_variables,
+                      load_state_dict_file, refuse_directory)
 from .darknet import Darknet19, Darknet19Classifier, darknet19
 from .initialize import lecun_normal_
 from .layers import ConvBn, ConvBnAct, ConvBnRelu, DeconvBnRelu
@@ -18,8 +19,10 @@ __all__ = [
     "SPM",
     "count_params",
     "darknet19",
+    "from_jax_opt_state",
     "from_jax_variables",
     "lecun_normal_",
     "load_state_dict_file",
     "print_summary",
+    "refuse_directory",
 ]

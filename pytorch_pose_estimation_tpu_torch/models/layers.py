@@ -136,9 +136,15 @@ class ConvBnAct(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.padded(x, self.conv.padding)
+
+    def padded(self, x: torch.Tensor, padding) -> torch.Tensor:
+        """The layer with the convolution's (rows, cols) ``padding``:
+        parallel/spatial.py gives (0, cols) on rows that already carry
+        their halo, cast to ``dtype``."""
         c = self.conv
         x = F.conv2d(x.to(self.dtype), c.weight.to(self.dtype), None,
-                     c.stride, c.padding)
+                     c.stride, padding)
         x = self.bn(x.float())
         if self.activation is not None:
             x = self.activation(x)
@@ -177,9 +183,18 @@ class DeconvBnRelu(nn.Sequential):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cropped(x)
+
+    def cropped(self, x: torch.Tensor,
+                rows: Optional[slice] = None) -> torch.Tensor:
+        """The layer, with the transposed convolution's output cut to
+        ``rows`` (of dim 2) before the BN: parallel/spatial.py keeps a
+        block's own rows of the output of its haloed rows."""
         deconv, bn = self[0], self[1]
         x = F.conv_transpose2d(x.to(self.dtype), deconv.weight.to(self.dtype),
                                None, deconv.stride, deconv.padding)
+        if rows is not None:
+            x = x[:, :, rows]
         return F.relu(bn(x.float())).to(self.dtype)
 
 

@@ -73,7 +73,10 @@ class PoseNet(nn.Module):
                                                _restoring_buffers(backbone)))
         else:
             x = backbone(x)
-        x = self.deconv_3(self.deconv_2(self.deconv_1(x)))
+        return self.logits(self.deconv_3(self.deconv_2(self.deconv_1(x))))
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The 1x1 head on the last deconv's output: fp32 logits."""
         head = getattr(self, self.head_name)[0]
         x = F.conv2d(x.to(self.dtype), head.weight.to(self.dtype))
         # logits stay fp32 so loss and decode match the reference numerics

@@ -30,8 +30,10 @@ import datetime
 import os
 import pickle
 import socket
+import sys
 import time
 import traceback
+from multiprocessing import process
 from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -157,6 +159,22 @@ def _rank_main(fn: Callable, args: tuple, r: int, world: int,
         dist.destroy_process_group()
 
 
+def _check_main_importable() -> None:
+    """Raise unless spawn can re-import the main module in a rank.  A
+    program read from standard input has a ``__file__`` that names no
+    file: its ranks die on start-up, and spawn's parent then blocks for
+    good writing arguments larger than a pipe's buffer to them."""
+    main = sys.modules.get("__main__")
+    path = getattr(main, "__file__", None)
+    if path is not None and not os.path.isabs(path):  # as spawn resolves it
+        path = os.path.join(process.ORIGINAL_DIR or "", path)
+    if getattr(getattr(main, "__spec__", None), "name", None) is None and \
+            path is not None and not os.path.exists(path):
+        raise RuntimeError(
+            f"parallel.launch starts its ranks with spawn, which re-imports "
+            f"the main module from {path!r}: run the program from a file")
+
+
 def launch(fn: Callable, devices: Sequence, backend: Optional[str] = None,
            args: tuple = (), timeout: datetime.timedelta = TIMEOUT
            ) -> List[Any]:
@@ -190,6 +208,7 @@ def launch(fn: Callable, devices: Sequence, backend: Optional[str] = None,
             torch.cuda.set_device(devices[0])
         return [fn(*args)]
     backend = backend or default_backend(devices)
+    _check_main_importable()
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.SimpleQueue()
     port = free_port()

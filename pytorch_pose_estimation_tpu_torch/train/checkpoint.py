@@ -33,7 +33,7 @@ import torch
 
 from torch import nn
 
-from ..models import load_state_dict_file
+from ..models import load_state_dict_file, refuse_directory
 from ..models.darknet import STAGE_NAMES
 from ..parallel import mesh
 from .state import TrainState
@@ -120,6 +120,7 @@ class CheckpointManager:
 
 
 def _load(path: str) -> dict:
+    refuse_directory(path)
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
@@ -135,6 +136,7 @@ def restore_checkpoint_flexible(path: str, state: TrainState) -> dict:
     """A full checkpoint, or else a bare model state_dict or Lightning
     checkpoint (e.g. converted reference weights) into the model only;
     returns the meta ({} for the latter)."""
+    refuse_directory(path)
     blob = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(blob, dict) and "optimizer" in blob:
         state.load_state_dict(blob)

@@ -65,7 +65,8 @@ from torch import nn
 
 from ..config import make_model_name
 from ..eval.metrics import SBPmAPCOCO, SBPmAPPIS, SPMmAPCOCO
-from ..models import SBP, SPM, PoseNet, lecun_normal_, load_state_dict_file
+from ..models import (SBP, SPM, PoseNet, lecun_normal_,
+                      load_state_dict_file, refuse_directory)
 from ..models.summary import print_summary
 from ..ops.decode import decode_sbp_fast
 from ..ops.image import normalize_batch
@@ -409,8 +410,9 @@ class Trainer:
           torch file of a classifier or pose model (``load_backbone``);
         * anything else: reported and skipped.
 
-        The JAX package's orbax directories are not read here (the orbax
-        reader is a ROADMAP item): a directory raises."""
+        The JAX package's orbax directories are not read here: a
+        directory raises, naming ``tools/orbax_to_torch.py``, which
+        converts one on the JAX host."""
         if not bp:
             return
         if bp == "tiny-imagenet":
@@ -419,10 +421,7 @@ class Trainer:
                 self._say(f"backbone_pretrained ckpt not found: {path}")
                 return
         elif os.path.isdir(bp):
-            raise ValueError(
-                f"backbone_pretrained {bp} is a directory (an orbax "
-                f"checkpoint of the JAX package?); the port reads torch "
-                f"files only")
+            refuse_directory(bp, "backbone_pretrained")
         elif os.path.isfile(bp):
             path = bp
         else:

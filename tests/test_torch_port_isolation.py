@@ -37,12 +37,13 @@ from pytorch_pose_estimation_tpu_torch.data import native_loader
 print(native_loader._tried)  # importing tried no build
 """
 # modules added with the device cache and the native loader, with data
-# parallelism, with the accuracy path's tools and with SPM at reference
-# scale
+# parallelism, with the accuracy path's tools, with SPM at reference scale
+# and with height-sharded inference
 NEW_MODULES = ("data.native_loader", "train.device_cache",
                "test_coco_keypoints_map", "models.hourglass", "parallel",
                "parallel.mesh", "tools", "tools.ab_angle_groups",
-               "tools.tb_trajectory", "tools.convergence", "tools.spm_ref")
+               "tools.tb_trajectory", "tools.convergence", "tools.spm_ref",
+               "parallel.spatial")
 
 
 def test_port_imports_without_jax_cv2_yaml_or_the_jax_package():
@@ -56,6 +57,17 @@ def test_port_imports_without_jax_cv2_yaml_or_the_jax_package():
         assert f"pytorch_pose_estimation_tpu_torch.{name}" in names, name
     assert bad.strip() == "[]"
     assert tried == "False"
+
+
+def test_orbax_converter_lies_outside_the_package():
+    """``tools/orbax_to_torch.py`` imports JAX and orbax, so it sits in the
+    repo's root ``tools/``, not in the port (whose ``tools`` package the
+    probe above imports without JAX)."""
+    assert os.path.isfile(os.path.join(REPO, "tools", "orbax_to_torch.py"))
+    package = os.path.join(REPO, "pytorch_pose_estimation_tpu_torch")
+    found = [os.path.join(d, f) for d, _, files in os.walk(package)
+             for f in files if f.startswith("orbax_to_torch")]
+    assert found == []
 
 
 def _in_a_process_group() -> bool:

@@ -609,3 +609,26 @@ def test_launch_raises_a_failing_ranks_error_without_hanging():
         parallel.launch(W.fail_on_rank_1, ["cpu", "cpu"], "gloo",
                         timeout=datetime.timedelta(seconds=60))
 
+
+
+_FROM_STDIN = """
+from pytorch_pose_estimation_tpu_torch import parallel
+parallel.launch(parallel.rank, ["cpu", "cpu"], "gloo",
+                args=(), timeout=__import__("datetime").timedelta(seconds=30))
+"""
+
+
+def test_launch_from_standard_input_raises_at_once():
+    """spawn re-imports the main module in each rank; a program read from
+    standard input has none, and with arguments over a pipe's buffer
+    spawn's parent used to block for good on the dead ranks: ``launch``
+    raises before it starts them."""
+    import subprocess
+    import sys
+
+    out = subprocess.run([sys.executable, "-"], input=_FROM_STDIN,
+                         cwd=os.path.dirname(os.path.dirname(
+                             os.path.abspath(__file__))),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "run the program from a file" in out.stderr, out.stderr[-2000:]
