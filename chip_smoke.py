@@ -160,18 +160,34 @@ non-zero, printing no result:
    the one-process forward's ms, each rank's sharded forward ms and the ms
    of its exchanges, and the halo bytes a forward sends (two ranks sharing
    one card: not a scaling figure).  The launch counts are set to 0 just
-   before the phase and read just after.
+   before the phase and read just after;
+15. the spm_synth_hard recipe (``tools.spm_ref.SPM_SYNTH_HARD``:
+   configs/spm_synth_hard.yaml's values, 256 -> 64, batch 32, bf16,
+   ``augment_geometric``, ``cache_images``, ``max_persons`` 10) on its
+   corpus (``make_dataset`` with ``tools.spm_ref.HARD_CORPUS``: 5-8
+   persons an image, checked) cut to 64 train and 16 val images, through
+   ``train_spm.train`` for 2 epochs (4 steps), validated after each: each
+   epoch's images/s, each validation's seconds, the peak memory, finite
+   losses, a train loss at epoch 1 below epoch 0's (val_loss is printed:
+   at full lr it rises tenfold over these steps, in the JAX package's
+   run of the same fit too, tests/spm_hard_witness.py) and 0 launches of
+   K1 and K2 (set to 0 just before the fit, read just after); ``test_spm.test``
+   of ``last`` gives epoch 1's val_loss (1e-4) and AP@.5 (exactly) again;
+   then the geometric train step alone at 256x256 on a batch of the host
+   loader, by host clock and split by CUDA events.  The images and the
+   epochs are cut, and yolo_lr's burn-in with them (300 of 2,000 steps,
+   1 of 4: at 300 the lr stays under 1e-10); the rest is the run's.
 
 The last three lines of standard output: the card's name and power limit,
 one JSON object describing each kernel (launches summed over phases 4-10
-and 12, each rank's launches in 11c, and phases 12's, 13's and 14's
+and 12, each rank's launches in 11c, and phases 12's, 13's, 14's and 15's
 alone),
 and ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
 ...}}``.  The configs are written inline with the values of
 configs/sbp_coco.yaml, spm_coco.yaml, sbp_pis.yaml,
-darknet19_classifier.yaml and spm_synth_ref.yaml, so PyYAML is not needed;
-phases 1-9 make their data in memory, phases 10, 12 and 13 write JPEG
-files with cv2.  Imports nothing of
+darknet19_classifier.yaml, spm_synth_ref.yaml and spm_synth_hard.yaml, so
+PyYAML is not needed; phases 1-9 make their data in memory, phases 10,
+12, 13 and 15 write JPEG files with cv2.  Imports nothing of
 JAX.
 """
 
@@ -2649,6 +2665,129 @@ def phase_spatial(tmp, device="cuda", ranks_on=SPATIAL_RANKS, sbp_cfg=CFG,
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 15: the spm_synth_hard recipe
+# --------------------------------------------------------------------------
+
+HARD_EPOCHS = 2  # of configs/spm_synth_hard.yaml's 250
+HARD_IMAGES = {"train2017": 64, "val2017": 16}  # of 256 and 48
+# yolo_lr's burn-in rescaled to the phase's 4 steps as the recipe's is to
+# its 2,000 (300: 15%, so 1).  With 300 the lr stays under 1e-10 in 4
+# steps: no loss can fall (on the H100 the train loss went 349.76 to
+# 355.49, val_loss 107.85 to 109.27, moved by BN's running statistics
+# alone).  At full lr the train loss falls, while val_loss first rises
+# tenfold, as in the recipe's own run (218 at epoch 4, 441 at 14, 21 at
+# 29) and in the JAX package's run of this phase's fit on the CPU
+# (tests/spm_hard_witness.py): the phase holds the train loss
+HARD_BURN_IN = 1
+
+
+def hard_config(tmp):
+    """Phase 15's corpus under ``tmp`` and its config; returns (config,
+    split -> (images, instances, fewest and most persons an image))."""
+    root = os.path.join(tmp, "spm_hard")
+    make_dataset = spm_ref.load_fixture(SYNTH_FIXTURE).make_dataset
+    paths, counts = {}, {}
+    for split, n in HARD_IMAGES.items():
+        seed = spm_ref.HARD_SPLITS[split][1]
+        paths[split] = make_dataset(root, split, n, seed=seed,
+                                    **spm_ref.HARD_CORPUS)
+        with open(paths[split]) as f:
+            db = json.load(f)
+        per_image = np.bincount([a["image_id"] for a in db["annotations"]])
+        counts[split] = (len(db["images"]), len(db["annotations"]),
+                         int(per_image[1:].min()), int(per_image.max()))
+    cfg = dict(spm_ref.SPM_SYNTH_HARD, train_path=paths["train2017"],
+               val_path=paths["val2017"], img_dir=root, epochs=HARD_EPOCHS,
+               save_dir=os.path.join(tmp, "saved_hard"),
+               trainer_options={"check_val_every_n_epoch": 1,
+                                "num_sanity_val_steps": 0},
+               scheduler_options=dict(
+                   spm_ref.SPM_SYNTH_HARD["scheduler_options"],
+                   burn_in=HARD_BURN_IN))
+    return cfg, counts
+
+
+def phase_spm_hard(tmp, device="cuda"):
+    """Phase 15 (see the module docstring).  Returns the launches of K1 and
+    K2 over the fit."""
+    start = time.perf_counter()
+    cfg, counts = hard_config(tmp)
+    print("15: corpus " + "; ".join(
+        f"{split} {n} images, {inst} instances, {lo}-{hi} an image"
+        for split, (n, inst, lo, hi) in counts.items()))
+    check(all(c[0] == HARD_IMAGES[s] and c[2] >= 5 and c[3] <= 8
+              for s, c in counts.items()), f"15: the corpus {counts}")
+    spe = HARD_IMAGES["train2017"] // cfg["batch_size"]
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    state, text, vals, val_s, dt = _ref_fit(cfg, device)
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if device == "cuda" else float("nan")
+    print("\n".join(f"15: {ln}" for ln in REF_LINES.findall(text)))
+    rates = [float(m.group(2)) for m in EPOCH_LINE.finditer(text)]
+    losses = [float(v) for v in re.findall(
+        r"^epoch \d+: train_loss=(\S+)", text, re.M)]
+    print(f"15: train_spm.train, {HARD_EPOCHS} epochs ({state.step} steps at "
+          f"batch {cfg['batch_size']}, {cfg['input_size']}x"
+          f"{cfg['input_size']}, augment_geometric, cache_images) with "
+          f"{len(vals)} validations of {HARD_IMAGES['val2017']} images in "
+          f"{dt:.1f} s host clock; epochs {rates} img/s; validations "
+          f"{[round(v, 2) for v in val_s]} s; val_loss "
+          f"{[round(v[0], 4) for v in vals]}; peak device memory "
+          f"{peak:.2f} GiB; launches {launches}")
+    check(state.step == HARD_EPOCHS * spe and len(rates) == HARD_EPOCHS,
+          f"15: {state.step} steps, {len(rates)} epoch lines")
+    check(len(losses) == HARD_EPOCHS and all(np.isfinite(losses)) and
+          len(vals) == HARD_EPOCHS and all(np.isfinite(v[0]) for v in vals),
+          f"15: losses {losses}, validations {vals}")
+    check(losses[-1] < losses[0],
+          f"15: the train loss did not fall: {losses}")
+    check(all(n == 0 for n in launches.values()),
+          f"15: a kernel launched on the SPM path: {launches}")
+
+    last = os.path.join(cfg["save_dir"],
+                        "single-stage-pose-machines_spm-synth-hard",
+                        "version_0", "checkpoints", "last")
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = test_spm.test(cfg, last, device)
+    want = vals[-1]
+    print(f"15: test_spm.test of last: val_loss={got[0]:.6f} "
+          f"val_mAP={got[1]:.6f}; epoch {HARD_EPOCHS - 1}'s validation "
+          f"val_loss={want[0]:.6f} val_mAP={want[1]:.6f}")
+    check(abs(got[0] - want[0]) <= 1e-4 and got[1] == want[1],
+          f"15: test_spm of last {got} is not epoch {HARD_EPOCHS - 1}'s "
+          f"validation {want}")
+
+    if device == "cuda":
+        dm = SPMCOCODataModule(
+            cfg["train_path"], cfg["val_path"], cfg["img_dir"],
+            cfg["input_size"], cfg["output_size"], K, cfg["sigma"],
+            cfg["workers"], cfg["batch_size"], cfg["class_labels"],
+            max_persons=cfg["max_persons"])
+        dm.setup()
+        host_batch = next(iter(dm.train_loader()))
+        batch = {k: trainer_module.to_device(host_batch[k],
+                                             torch.device(device))
+                 for k in trainer_module._KEYS["spm"]}
+        step, _ = make_spm_steps(state.model, state.optimizer,
+                                 cfg["input_size"], cfg["output_size"], K,
+                                 float(cfg["sigma"]), cfg["conf_threshold"],
+                                 augment={"geometric": True},
+                                 max_persons=cfg["max_persons"])
+        gen = torch.Generator(device).manual_seed(15)
+        host_gen = torch.Generator().manual_seed(15)
+        time_step("spm hard (augment_geometric, 256x256)",
+                  cfg["batch_size"], lambda marker=None: step(
+                      batch, gen, host_gen, marker=marker))
+    print(f"phase 15 took {time.perf_counter() - start:.1f} s")
+    return launches
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -2697,6 +2836,7 @@ def main():
             print(f"launches over phases 4-10 and 12: {launches}")
             ref_launches = phase_spm_ref(tmp)
             spatial_launches = phase_spatial(tmp)
+            hard_launches = phase_spm_hard(tmp)
         finally:
             os.chdir(cwd)
 
@@ -2708,6 +2848,7 @@ def main():
                 "launches_12": learn_launches[name],
                 "launches_13": ref_launches[name],
                 "launches_14": spatial_launches[name],
+                "launches_15": hard_launches[name],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bnd, "bound_by": by, "library_ms": None}
 

@@ -33,10 +33,12 @@ from ..data.coco import COCO_KPT_SIGMAS, CocoAnnotations
 class KeypointEvaluator:
     """OKS keypoint AP evaluator over a CocoAnnotations GT + results pair."""
 
-    def __init__(self, coco_gt: CocoAnnotations, coco_dt: CocoAnnotations):
+    def __init__(self, coco_gt: CocoAnnotations, coco_dt: CocoAnnotations,
+                 sigmas: Optional[np.ndarray] = None):
         self.gt = coco_gt
         self.dt = coco_dt
-        self.sigmas = np.asarray(COCO_KPT_SIGMAS, np.float64)
+        self.sigmas = np.asarray(sigmas if sigmas is not None
+                                 else COCO_KPT_SIGMAS, np.float64)
         self.iou_thrs = np.linspace(0.5, 0.95, 10)
         self.rec_thrs = np.linspace(0.0, 1.0, 101)
         self.max_dets = 20
@@ -257,3 +259,11 @@ class KeypointEvaluator:
         self.accumulate()
         return self.summarize(verbose)
 
+
+def evaluate_keypoints(gt_json: str, results, sigmas=None,
+                       verbose: bool = True) -> np.ndarray:
+    """Convenience wrapper: GT json path + results list/path -> stats."""
+    gt = CocoAnnotations(gt_json)
+    dt = gt.load_results(results)
+    ev = KeypointEvaluator(gt, dt, sigmas=sigmas)
+    return ev.run(verbose)

@@ -1,12 +1,12 @@
 #!/usr/bin/env bash
 # The port's accuracy path on one GPU, from the repo root:
 #
-#   [ARMS="sbp spm"] [SPM_EPOCHS=90] \
+#   [ARMS="sbp spm"] [SPM_EPOCHS=90] [SPM_SEEDS="0"] [HARD_EPOCHS=250] \
 #   bash pytorch_pose_estimation_tpu_torch/tools/accuracy_on_card.sh \
 #       [OUT_DIR=saved/accuracy] [PIS_SEEDS="0"]
 #
-# ARMS selects the arms: "sbp" runs steps a-d, "spm" step e; both by
-# default.
+# ARMS selects the arms: "sbp" runs steps a-d, "spm" step e, "spm_hard"
+# step f; "sbp spm" by default.
 #
 # a. the ref-scale synthetic corpus (tests/synth_fixture.py, by its path:
 #    `-m tests.synth_fixture` can find another package named `tests`);
@@ -21,13 +21,23 @@
 #    `best`;
 # e. SPM at reference scale: configs/spm_synth_ref.yaml's corpus
 #    (tools.spm_ref corpus: 5,000 train images with 27,656 instances, 500
-#    val with 2,774, or it fails), a copy of the YAML under $TMPDIR with
-#    `epochs: $SPM_EPOCHS` and nothing else changed, train_spm --resume
+#    val with 2,774, or it fails), then for each seed of SPM_SEEDS a copy
+#    of the YAML under $TMPDIR with `epochs: $SPM_EPOCHS`, that `seed`
+#    (the init, the augmentation stream and the shuffle) and its own
+#    `save_dir: ./saved/spm_s<seed>` (so that --resume auto finds only
+#    that seed's checkpoints), nothing else changed; train_spm --resume
 #    auto on it (about an hour of card time for 90 epochs at about 255 ms
-#    a step; a later run of the script resumes from the newest
-#    checkpoint, its log in spm_train_<N>.log), the trajectory at 156
-#    steps an epoch over every attempt's log, test_spm and inference_spm
-#    --limit 8 of the newest run's `best`.
+#    a step; a later run of the script resumes from the seed's newest
+#    checkpoint, its log in spm_s<seed>_train_<N>.log), the trajectory at
+#    156 steps an epoch over every attempt's log, test_spm and
+#    inference_spm --limit 8 of the newest run's `best`;
+# f. spm_synth_hard: configs/spm_synth_hard.yaml's corpus (tools.spm_ref
+#    corpus --recipe hard: 256 train and 48 val images of 5-8 persons),
+#    a copy of the YAML with `epochs: $HARD_EPOCHS` and nothing else
+#    changed (8 steps an epoch: 250 epochs are yolo_lr's 2,000 steps) but
+#    `save_last_every_n_epochs: 25` appended (a card host counts every
+#    byte written: `last` every epoch would be 73 GB), train_spm --resume
+#    auto, the trajectory, test_spm of `best`.
 # Every command's output goes to OUT_DIR/<step>.log; OUT_DIR/summary.txt
 # collects the numbers.  Corpus, memo and checkpoints stay under ./data,
 # ./saved and ./saved_ab.
@@ -37,6 +47,8 @@ PIS_SEEDS=${2:-0}
 PIS_EPOCHS=140  # the JAX run stopped at about epoch 135
 ARMS=${ARMS:-sbp spm}
 SPM_EPOCHS=${SPM_EPOCHS:-90}  # JAX's last validation was at epoch 89
+SPM_SEEDS=${SPM_SEEDS:-0}
+HARD_EPOCHS=${HARD_EPOCHS:-250}
 PY=${PYTHON:-python3}
 M=pytorch_pose_estimation_tpu_torch
 mkdir -p "$OUT"
@@ -64,6 +76,39 @@ trajectory() {  # trajectory LOGDIR LOG STEPS_PER_EPOCH
     else
         $PY -m $M.tools.tb_trajectory --log "$2" --steps-per-epoch "$3"
     fi
+}
+spm_run() {  # spm_run TAG RECIPE EPOCHS [SEED]: config copy, train, trajectory, best
+    local tag=$1 recipe=$2 epochs=$3 seed=${4:-}
+    local cfg; cfg=$(mktemp -d)/spm_$recipe.yaml
+    step ${tag}_config $PY -m $M.tools.spm_ref config "$cfg" --recipe "$recipe" --epochs "$epochs"
+    if [ -n "$seed" ]; then
+        echo "seed: $seed" >> "$cfg"
+        sed -i -E "s|^save_dir *:.*|save_dir : './saved/$tag'|" "$cfg"
+    fi
+    # `last` of 293 MB every epoch would write 73 GB in 250 epochs
+    [ "$recipe" = hard ] && echo "save_last_every_n_epochs: 25" >> "$cfg"
+    say "$tag config: $cfg, $(diff "configs/spm_synth_$recipe.yaml" "$cfg" | grep -E '^[<>]' | tr '\n' ' ')"
+    local n=1; while [ -e "$OUT/${tag}_train_$n.log" ]; do n=$((n + 1)); done
+    step ${tag}_train_$n $PY -u -m $M.train_spm --cfg "$cfg" --resume auto
+    grep -E "auto-resume|resuming|device cache" "$OUT/${tag}_train_$n.log" | tee -a "$SUM"
+    local all="$OUT/${tag}_train_all.log"
+    for F in $(ls "$OUT/${tag}"_train_[0-9]*.log | sort -V); do cat "$F"; done > "$all"
+    grep -E "^epoch [0-9]+: train_loss" "$all" >> "$SUM"
+    local save; save=$(sed -nE "s/^save_dir *: *'?([^' ]*)'?.*/\1/p" "$cfg")
+    local ds; ds=$(sed -nE "s/^dataset_name *: *'?([^' ]*)'?.*/\1/p" "$cfg")
+    local sdir; sdir=$(ls -d "$save"/single-stage-pose-machines_"$ds"/version_* | sort -V | tail -n 1)
+    local spe; spe=$(grep -oE "[0-9]+ steps/epoch" "$all" | head -n 1 | cut -d' ' -f1)
+    # no device cache, no such line: train images // batch
+    [ -n "$spe" ] || spe=$($PY -c "import json; from $M.config import get_configs
+c = get_configs('$cfg')
+print(len(json.load(open(c['train_path']))['images']) // c['batch_size'])")
+    say "$tag trajectory ($sdir, steps per epoch $spe):"
+    trajectory "$sdir" "$all" "$spe" | tee -a "$SUM"
+    SCFG=$cfg
+    SBEST="$sdir/checkpoints/best"
+    say "$tag best: $(cat "$SBEST.meta.json")"
+    step ${tag}_test $PY -u -m $M.test_spm --cfg "$cfg" --ckpt "$SBEST"
+    grep -E "AP @|AR @|val_loss=" "$OUT/${tag}_test.log" | tee -a "$SUM"
 }
 
 if arm sbp; then
@@ -119,28 +164,21 @@ done
 fi
 
 if arm spm; then
-# e. SPM at reference scale
+# e. SPM at reference scale, per seed
 step spm_corpus $PY -m $M.tools.spm_ref corpus ./data/spm_ref
 tee -a "$SUM" < "$OUT/spm_corpus.log"
-SPM_CFG=$(mktemp -d)/spm_synth_ref.yaml
-step spm_config $PY -m $M.tools.spm_ref config "$SPM_CFG" --epochs "$SPM_EPOCHS"
-say "spm config: $SPM_CFG, $(diff configs/spm_synth_ref.yaml "$SPM_CFG" | grep -E '^[<>]' | tr '\n' ' ')"
-N=1; while [ -e "$OUT/spm_train_$N.log" ]; do N=$((N + 1)); done
-step spm_train_$N $PY -u -m $M.train_spm --cfg "$SPM_CFG" --resume auto
-grep -E "auto-resume|resuming|device cache" "$OUT/spm_train_$N.log" | tee -a "$SUM"
-ALL="$OUT/spm_train_all.log"
-for F in $(ls "$OUT"/spm_train_[0-9]*.log | sort -V); do cat "$F"; done > "$ALL"
-grep -E "^epoch [0-9]+: train_loss" "$ALL" >> "$SUM"
-SDIR=$(ls -d ./saved/single-stage-pose-machines_spm-synth-ref/version_* | sort -V | tail -n 1)
-SSPE=$(grep -oE "[0-9]+ steps/epoch" "$ALL" | head -n 1 | cut -d' ' -f1)
-say "spm trajectory ($SDIR, steps per epoch $SSPE):"
-trajectory "$SDIR" "$ALL" "$SSPE" | tee -a "$SUM"
-SBEST="$SDIR/checkpoints/best"
-say "spm best: $(cat "$SBEST.meta.json")"
-step test_spm $PY -u -m $M.test_spm --cfg "$SPM_CFG" --ckpt "$SBEST"
-grep -E "AP @|AR @|val_loss=" "$OUT/test_spm.log" | tee -a "$SUM"
-step inference_spm $PY -u -m $M.inference_spm --cfg "$SPM_CFG" --ckpt "$SBEST" \
-    --save-dir "$OUT/spm_vis" --limit 8
-say "inference_spm: $(grep -c '^Inference:' "$OUT/inference_spm.log") images, $(grep '^Inference:' "$OUT/inference_spm.log" | tr '\n' ' ')"
+for SEED in $SPM_SEEDS; do
+    spm_run spm_s$SEED ref "$SPM_EPOCHS" "$SEED"
+    step inference_spm_s$SEED $PY -u -m $M.inference_spm --cfg "$SCFG" --ckpt "$SBEST" \
+        --save-dir "$OUT/spm_vis_s$SEED" --limit 8
+    say "inference_spm, seed $SEED: $(grep -c '^Inference:' "$OUT/inference_spm_s$SEED.log") images, $(grep '^Inference:' "$OUT/inference_spm_s$SEED.log" | tr '\n' ' ')"
+done
+fi
+
+if arm spm_hard; then
+# f. spm_synth_hard
+step hard_corpus $PY -m $M.tools.spm_ref corpus --recipe hard
+tee -a "$SUM" < "$OUT/hard_corpus.log"
+spm_run spm_hard hard "$HARD_EPOCHS"
 fi
 say "done"

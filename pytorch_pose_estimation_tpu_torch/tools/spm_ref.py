@@ -1,19 +1,37 @@
-"""SPM at reference scale: configs/spm_synth_ref.yaml's corpus, rebuilt from
-the repo's synthetic fixture, and the config's copy for a run of fewer
-epochs.  From the repo root:
+"""SPM on the synthetic corpora: the corpora of configs/spm_synth_ref.yaml
+(``ref``) and configs/spm_synth_hard.yaml (``hard``), rebuilt from the
+repo's synthetic fixture, and each config's copy for a run of another
+length.  From the repo root:
 
     python -m pytorch_pose_estimation_tpu_torch.tools.spm_ref corpus \\
-        [ROOT=./data/spm_ref] [--fixture tests/synth_fixture.py]
+        [ROOT] [--recipe ref|hard] [--fixture tests/synth_fixture.py]
     python -m pytorch_pose_estimation_tpu_torch.tools.spm_ref config OUT \\
-        [--epochs 90] [--src configs/spm_synth_ref.yaml]
+        [--recipe ref|hard] [--epochs 90] [--src YAML]
 
-``corpus`` writes the 640x512 JPEG images and their annotation files
-(hard multi-person scenes: 3-8 overlapping persons, 8 distractor shapes,
-torso occlusion at p 0.3, 36-300 px scale jitter) and fails unless the
-counts are the ones behind the JAX package's run (``PARITY.md``: 500 val
-images, 2,774 instances).  ``config`` copies the YAML with its ``epochs``
-line replaced and nothing else changed.  ``SPM_SYNTH_REF`` holds the
-YAML's values inline, for callers without PyYAML.
+``corpus`` writes the JPEG images and their annotation files under ROOT
+(the recipe's ``./data/spm_ref`` or ``./data/spm_hard`` by default),
+prints the image and instance counts it wrote, and fails on an image
+count, or on an instance count where the recipe has one, that is not the
+recipe's.  ``config`` copies the YAML with its ``epochs`` line replaced
+and nothing else changed.
+
+* ``ref``: 640x512 hard multi-person scenes (3-8 overlapping persons, 8
+  distractor shapes, torso occlusion at p 0.3, 36-300 px scale jitter),
+  5,000 train and 500 val images with the counts behind the JAX
+  package's run (``PARITY.md``: 500 val images, 2,774 instances).
+  ``SPM_SYNTH_REF`` holds the YAML's values inline, for callers without
+  PyYAML.
+* ``hard``: ``make_dataset``'s defaults (400x320, no clutter, occlusion
+  or scale jitter) with ``min_persons=5, max_persons=8``, the YAML
+  header's 5-8 persons an image; 256 train images with seed 0 and 48 val
+  with seed 1.  The seeds are the fixture CLI's, the counts
+  ``PARITY.md``'s.  JAX recorded no
+  instance counts, so the image counts are the only gate.  At batch 32
+  an epoch is 8 steps, so the YAML's 250 epochs are the 2,000 steps that
+  ``yolo_lr``'s ``steps: [2000]`` assumes (``burn_in`` 300: 37.5
+  epochs).  The header's "2.5k-step run" does not fit 256 train images:
+  250 epochs of them are 2,000 steps.  ``SPM_SYNTH_HARD`` holds the
+  YAML's values inline.
 """
 
 from __future__ import annotations
@@ -31,6 +49,13 @@ CORPUS = dict(img_size=(512, 640), min_persons=3, max_persons=8, clutter=8,
 # train seed follows the fixture's CLI (train 0, val 1)
 SPLITS = {"train2017": (5000, 0, 27656), "val2017": (500, 1, 2774)}
 CONFIG = "configs/spm_synth_ref.yaml"
+# the hard recipe: no instance count to hold (None)
+HARD_CORPUS = dict(min_persons=5, max_persons=8)
+HARD_SPLITS = {"train2017": (256, 0, None), "val2017": (48, 1, None)}
+HARD_CONFIG = "configs/spm_synth_hard.yaml"
+# recipe -> (make_dataset's arguments, splits, YAML, default root)
+RECIPES = {"ref": (CORPUS, SPLITS, CONFIG, "./data/spm_ref"),
+           "hard": (HARD_CORPUS, HARD_SPLITS, HARD_CONFIG, "./data/spm_hard")}
 COCO_KP_NAMES = [
     "nose", "left_eye", "right_eye", "left_ear", "right_ear",
     "left_shoulder", "right_shoulder", "left_elbow", "right_elbow",
@@ -60,6 +85,18 @@ SPM_SYNTH_REF = {
     "augment_geometric": True, "cache_device": True,
     "scan_steps_per_dispatch": 24,
 }
+# configs/spm_synth_hard.yaml, every key
+SPM_SYNTH_HARD = {
+    **{k: v for k, v in SPM_SYNTH_REF.items()
+       if k not in ("cache_device", "scan_steps_per_dispatch")},
+    "dataset_name": "spm-synth-hard", "input_size": 256, "output_size": 64,
+    "epochs": 250,
+    "train_path": "./data/spm_hard/annotations/person_keypoints_train2017.json",
+    "val_path": "./data/spm_hard/annotations/person_keypoints_val2017.json",
+    "img_dir": "./data/spm_hard",
+    "scheduler_options": {"burn_in": 300, "steps": [2000], "scales": [0.1]},
+    "cache_images": True,
+}
 
 
 def load_fixture(path: str = "tests/synth_fixture.py"):
@@ -73,19 +110,20 @@ def load_fixture(path: str = "tests/synth_fixture.py"):
 
 
 def make_corpus(root: str, fixture: str = "tests/synth_fixture.py",
-                splits=tuple(SPLITS)) -> dict:
-    """Write ``splits`` of the corpus under ``root``; returns split ->
-    (annotation path, images, instances).  Raises if a count is not the
+                splits=("train2017", "val2017"), recipe: str = "ref") -> dict:
+    """Write ``splits`` of ``recipe``'s corpus under ``root``; returns split
+    -> (annotation path, images, instances).  Raises if a count is not the
     recipe's."""
     make_dataset = load_fixture(fixture).make_dataset
+    corpus, recipe_splits = RECIPES[recipe][:2]
     out = {}
     for split in splits:
-        n, seed, want = SPLITS[split]
-        path = make_dataset(root, split, n, seed=seed, **CORPUS)
+        n, seed, want = recipe_splits[split]
+        path = make_dataset(root, split, n, seed=seed, **corpus)
         with open(path) as f:
             db = json.load(f)
         got = (len(db["images"]), len(db["annotations"]))
-        if got != (n, want):
+        if got[0] != n or want not in (None, got[1]):
             raise RuntimeError(f"{split}: {got[0]} images and {got[1]} "
                                f"instances, the recipe's are {n} and {want}")
         out[split] = (path, *got)
@@ -111,19 +149,24 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     sub = parser.add_subparsers(dest="command", required=True)
     corpus = sub.add_parser("corpus")
-    corpus.add_argument("root", nargs="?", default="./data/spm_ref")
+    corpus.add_argument("root", nargs="?")
     corpus.add_argument("--fixture", default="tests/synth_fixture.py")
     config = sub.add_parser("config")
     config.add_argument("out")
     config.add_argument("--epochs", type=int, default=90)
-    config.add_argument("--src", default=CONFIG)
+    config.add_argument("--src")
+    for command in (corpus, config):
+        command.add_argument("--recipe", choices=sorted(RECIPES),
+                             default="ref")
     args = parser.parse_args(argv)
+    _, _, yaml_path, root = RECIPES[args.recipe]
     if args.command == "corpus":
-        for split, (path, n, inst) in make_corpus(args.root,
-                                                  args.fixture).items():
+        for split, (path, n, inst) in make_corpus(
+                args.root or root, args.fixture,
+                recipe=args.recipe).items():
             print(f"{split}: {n} images, {inst} instances: {path}")
     else:
-        print(write_config(args.out, args.epochs, args.src))
+        print(write_config(args.out, args.epochs, args.src or yaml_path))
 
 
 if __name__ == "__main__":

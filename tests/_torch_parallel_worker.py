@@ -49,7 +49,7 @@ def bn_inputs(batch: int = 4):
 def bn_case(x, g, w, b) -> dict:
     """One train-mode BatchNorm2d forward of ``x`` and the backward of
     sum(y * g); returns y, the gradients and the running statistics."""
-    bn = BatchNorm2d(3)
+    bn = BatchNorm2d(x.shape[1])
     with torch.no_grad():
         bn.weight.copy_(torch.from_numpy(w))
         bn.bias.copy_(torch.from_numpy(b))
@@ -306,6 +306,15 @@ def fail_on_rank_1() -> None:
     if parallel.rank() == 1:
         raise ValueError("rank 1 fails on purpose")
     parallel.barrier()  # waits for rank 1, which never comes
+
+
+def bn_main(cases: dict) -> dict:
+    """``bn_case`` of each named (x, g, w, b) on this rank's rows of the
+    batch (tests/test_torch_port_bn_variance.py)."""
+    return {"world": parallel.world_size(),
+            **{name: bn_case(*(parallel.local_rows(a) if a.ndim == 4 else a
+                               for a in args))
+               for name, args in cases.items()}}
 
 
 def rank_main(spec: dict) -> dict:

@@ -19,8 +19,10 @@ from readings of this test's step, not from
 BatchNorm takes the batch variance in one pass (E[x^2] - E[x]^2 in
 fp32) and the port in two, and on this third step that puts the sound
 update 2.41% of its norm from flax's at the median and 3.10% at most
-(ROADMAP Queue 3), while the same step with the trace dropped reads 80%
-at most: the test prints both readings and holds the second past 0.25.
+(XLA sums E[x^2] on the CPU in a running fp32 sum: the cause is shown
+in test_torch_port_bn_variance.py), while the same step with the trace
+dropped reads 80% at most: the test prints both readings and holds the
+second past 0.25.
 Eval logits 1e-4 absolute (they lie within +-1).  The
 optimizer step after a mapped state: ``test_torch_port_optim.py``'s
 tolerance (5e-5 relative for the adam family, else 1e-6).
@@ -203,7 +205,10 @@ def test_training_checkpoint_converts_exactly_and_trains_on(jax_run,
                                                            tmp_path):
     """(a) Every model tensor, every trace, the count, the step and the
     meta exactly JAX's; then the next step from each side on the same
-    batch and draws."""
+    batch and draws, held at 5e-2 of the update: flax's default one-pass
+    BN variance, summed by XLA on the CPU in a running fp32 sum, puts
+    JAX's step 2.41-3.10% from the port's (tests/
+    test_torch_port_bn_variance.py shows the cause on one BN layer)."""
     out = str(tmp_path / "last")
     assert tool.convert(CFG, str(jax_run["ckpt_dir"] / "last"), out) == {
         out: "train"}

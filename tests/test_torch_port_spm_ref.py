@@ -142,9 +142,10 @@ def test_arm_config_copy_differs_in_epochs_only(epochs, tmp_path):
     with open(SCRIPT) as f:
         script = f.read()
     assert "SPM_EPOCHS=${SPM_EPOCHS:-90}" in script
-    assert '-m $M.tools.spm_ref config "$SPM_CFG" --epochs "$SPM_EPOCHS"' \
-        in script
-    assert '-m $M.train_spm --cfg "$SPM_CFG" --resume auto' in script
+    assert 'spm_run spm_s$SEED ref "$SPM_EPOCHS" "$SEED"' in script
+    assert '-m $M.tools.spm_ref config "$cfg" --recipe "$recipe" --epochs ' \
+        '"$epochs"' in script
+    assert '-m $M.train_spm --cfg "$cfg" --resume auto' in script
 
 
 # --------------------------------------------------------------------------
