@@ -176,12 +176,22 @@ non-zero, printing no result:
    then the geometric train step alone at 256x256 on a batch of the host
    loader, by host clock and split by CUDA events.  The images and the
    epochs are cut, and yolo_lr's burn-in with them (300 of 2,000 steps,
-   1 of 4: at 300 the lr stays under 1e-10); the rest is the run's.
+   1 of 4: at 300 the lr stays under 1e-10); the rest is the run's;
+16. the JAX package's per-example image ops in the port, on the card
+   against the CPU with the same draws: ``sample_train_affine``'s core
+   (64 matrices), ``affine_warp`` of 64 images at 256x192 each by its own
+   matrix's inverse, ``rotate_shear3`` of the batch of 64 and
+   ``color_jitter`` of one image: the largest gap of each (at most 1e-5)
+   and its device time; then ``save_params`` of the full-width SBP on the
+   card and ``restore_params`` (bitwise the saved state_dict), and the
+   predictor from the file (``load_sbp_predictor``) gives the saved
+   model's joints on 64 images exactly, with the launch counts set to 0
+   just before and read just after (K2 twice).
 
 The last three lines of standard output: the card's name and power limit,
 one JSON object describing each kernel (launches summed over phases 4-10
-and 12, each rank's launches in 11c, and phases 12's, 13's, 14's and 15's
-alone),
+and 12, each rank's launches in 11c, and phases 12's, 13's, 14's, 15's
+and 16's alone),
 and ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
 ...}}``.  The configs are written inline with the values of
 configs/sbp_coco.yaml, spm_coco.yaml, sbp_pis.yaml,
@@ -196,6 +206,7 @@ import datetime
 import importlib.util
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -221,6 +232,7 @@ from pytorch_pose_estimation_tpu_torch.models import (count_params,
 from pytorch_pose_estimation_tpu_torch.models.darknet import (
     STAGE_NAMES, dropout_mask_shape, sample_dropout_mask)
 from pytorch_pose_estimation_tpu_torch.ops import decode as decode_ops
+from pytorch_pose_estimation_tpu_torch.ops import image as image_ops
 from pytorch_pose_estimation_tpu_torch.ops import kernels
 from pytorch_pose_estimation_tpu_torch.ops import targets as target_ops
 from pytorch_pose_estimation_tpu_torch.ops.image import (normalize_batch,
@@ -2788,6 +2800,102 @@ def phase_spm_hard(tmp, device="cuda"):
     return launches
 
 
+IMAGE_B = 64  # phase 16's batch for affine_warp and rotate_shear3
+IMAGE_AFFINE = dict(rotate_limit=40.0, scale_range=(0.4, 1.0),
+                    ratio_range=(0.4, 1.6))
+IMAGE_TOL = 1e-5
+
+
+def _gap(card, cpu) -> float:
+    return float((card.cpu().double() - cpu.double()).abs().max())
+
+
+def phase_image_ops(tmp, device="cuda"):
+    """Phase 16 (see the module docstring).  Returns the launches of K1 and
+    K2 over the save_params round trip."""
+    start = time.perf_counter()
+    h, w = CFG["input_size"]
+    gen = torch.Generator().manual_seed(16)
+    imgs = torch.rand(IMAGE_B, 3, h, w, generator=gen)
+    draws = [image_ops.sample_train_affine(gen, (h, w), **IMAGE_AFFINE)
+             for _ in range(IMAGE_B)]
+
+    def on(d, dev):
+        return image_ops.TrainAffineDraws(
+            **{k: v.to(dev) for k, v in vars(d).items()})
+
+    def cores(dev):
+        return torch.stack([image_ops.train_affine_core(on(d, dev), (h, w))
+                            for d in draws])
+
+    def warp(x, inv):
+        return torch.stack([image_ops.affine_warp(x[i], inv[i], (h, w))
+                            for i in range(len(x))])
+
+    angle = draws[0].angle * math.pi / 180.0
+
+    def rotate(x):
+        return image_ops.rotate_shear3(x, angle.to(x.device), h / 2.0,
+                                       w / 2.0)
+
+    def jitter(x):
+        return image_ops.color_jitter(torch.Generator().manual_seed(161), x)
+
+    cpu_m = cores("cpu")
+    inv = torch.stack([image_ops._invert(m) for m in cpu_m])
+    x, inv_d = imgs.to(device), inv.to(device)
+    results = {
+        f"sample_train_affine's core, {IMAGE_B} matrices": (
+            cores(device), cpu_m, float(cpu_m.abs().max()),
+            lambda: cores(device)),
+        f"affine_warp, {IMAGE_B} images {h}x{w}": (
+            warp(x, inv_d), warp(imgs, inv), 1.0, lambda: warp(x, inv_d)),
+        f"rotate_shear3, batch {IMAGE_B} {h}x{w}": (
+            rotate(x), rotate(imgs), 1.0, lambda: rotate(x)),
+        f"color_jitter, one {h}x{w} image": (
+            jitter(x[0]), jitter(imgs[0]), 1.0, lambda: jitter(x[0])),
+    }
+    for label, (card, cpu, scale, fn) in results.items():
+        gap = _gap(card, cpu) / scale
+        ms = device_ms(fn, iters=10) if device == "cuda" else float("nan")
+        print(f"16: {label}: card vs CPU largest gap {gap:.3g}"
+              f"{' of the largest entry' if scale != 1.0 else ''}; "
+              f"{ms:.3f} ms on the card (CUDA events)")
+        check(card.shape == cpu.shape and bool(torch.isfinite(card).all())
+              and gap <= IMAGE_TOL,
+              f"16: {label}: card vs CPU gap {gap} > {IMAGE_TOL}")
+
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    model = load_model(CFG, None, device)
+    want = model.state_dict()
+    path = checkpoint.save_params(os.path.join(tmp, "sbp_params.pt"), want)
+    restored = checkpoint.restore_params(path)
+    check(list(restored) == list(want) and all(
+        torch.equal(restored[k], v.cpu()) for k, v in want.items()),
+        "16: restore_params did not give back the saved state_dict")
+    images = np.random.RandomState(16).randint(0, 256, (IMAGE_B, h, w, 3),
+                                                dtype=np.uint8)
+    with torch.inference_mode():
+        before = decode_ops.decode_sbp_fast(
+            model(normalize_batch(torch.as_tensor(images, device=device))),
+            w, float(CFG["conf_threshold"]), True)
+    after = load_sbp_predictor(CFG, path, device)(images)
+    launches = _counts()
+    print(f"16: save_params -> restore_params of the full-width SBP "
+          f"({len(want)} tensors, {os.path.getsize(path) / 2 ** 20:.1f} "
+          f"MiB): bitwise equal; the predictor's joints [{IMAGE_B}, {K}, 3] "
+          f"from the file equal the saved model's: "
+          f"{bool(torch.equal(before, after))}; launches {launches}")
+    check(torch.equal(before, after), "16: the predictor's joints from the "
+          "restored file differ from the saved model's")
+    if device == "cuda":
+        check(launches == {"sbp_heatmaps_cuda": 0, "decode_sbp_cuda": 2},
+              f"16: K2 did not decode both predictions: {launches}")
+    print(f"phase 16 took {time.perf_counter() - start:.1f} s")
+    return launches
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -2837,6 +2945,7 @@ def main():
             ref_launches = phase_spm_ref(tmp)
             spatial_launches = phase_spatial(tmp)
             hard_launches = phase_spm_hard(tmp)
+            image_launches = phase_image_ops(tmp)
         finally:
             os.chdir(cwd)
 
@@ -2849,6 +2958,7 @@ def main():
                 "launches_13": ref_launches[name],
                 "launches_14": spatial_launches[name],
                 "launches_15": hard_launches[name],
+                "launches_16": image_launches[name],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bnd, "bound_by": by, "library_ms": None}
 

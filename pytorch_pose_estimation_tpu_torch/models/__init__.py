@@ -5,7 +5,7 @@ from .initialize import lecun_normal_
 from .layers import ConvBn, ConvBnAct, ConvBnRelu, DeconvBnRelu
 from .sbp import SBP, PoseNet
 from .spm import SPM
-from .summary import count_params, print_summary
+from .summary import count_params, print_summary, summarize
 
 __all__ = [
     "ConvBn",
@@ -25,4 +25,5 @@ __all__ = [
     "load_state_dict_file",
     "print_summary",
     "refuse_directory",
+    "summarize",
 ]

@@ -16,11 +16,12 @@ def count_params(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
-def print_summary(model: nn.Module, input_shape: Tuple[int, ...]
-                  ) -> Dict[str, Any]:
-    """Print the parameters of each top-level module, the total, the BN
-    running statistics and the output shape for ``input_shape`` (NCHW; one
-    eval-mode forward of zeros on the model's device)."""
+def summarize(model: nn.Module, input_shape: Tuple[int, ...]
+              ) -> Dict[str, Any]:
+    """The summary dict: the parameters of each top-level module, the
+    total, the BN running statistics and the output shape for
+    ``input_shape`` (NCHW; one eval-mode forward of zeros on the model's
+    device)."""
     per_module = {name: count_params(child)
                   for name, child in model.named_children()}
     n_stats = sum(b.numel() for name, b in model.named_buffers()
@@ -30,19 +31,25 @@ def print_summary(model: nn.Module, input_shape: Tuple[int, ...]
     with torch.inference_mode():
         out = model.eval()(torch.zeros(input_shape, device=device))
     model.train(training)
-    info = {"input_shape": tuple(input_shape),
+    return {"input_shape": tuple(input_shape),
             "output_shape": tuple(out.shape),
             "params_per_module": per_module,
             "total_params": count_params(model), "batch_stats": n_stats}
-    width = max((len(k) for k in per_module), default=10) + 2
+
+
+def print_summary(model: nn.Module, input_shape: Tuple[int, ...]
+                  ) -> Dict[str, Any]:
+    """Print ``summarize``'s dict as a table and return it."""
+    info = summarize(model, input_shape)
+    width = max((len(k) for k in info["params_per_module"]), default=10) + 2
     print("=" * (width + 20))
     print(f"{'Module':<{width}}{'Params':>14}")
     print("-" * (width + 20))
-    for name, n in per_module.items():
+    for name, n in info["params_per_module"].items():
         print(f"{name:<{width}}{n:>14,}")
     print("-" * (width + 20))
     print(f"{'Total trainable':<{width}}{info['total_params']:>14,}")
-    print(f"{'BN running stats':<{width}}{n_stats:>14,}")
+    print(f"{'BN running stats':<{width}}{info['batch_stats']:>14,}")
     print(f"Input  shape: {info['input_shape']}")
     print(f"Output shape: {info['output_shape']}")
     print("=" * (width + 20))

@@ -79,6 +79,117 @@ def transform_points(m: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     return pts @ m[..., :2].transpose(-1, -2) + m[..., None, :, 2]
 
 
+def _reflect101(coord: torch.Tensor, size: int) -> torch.Tensor:
+    """Fold coordinates into [0, size - 1], reflect-101 (no edge repeat)."""
+    if size == 1:
+        return torch.zeros_like(coord)
+    period = 2.0 * (size - 1)
+    c = torch.remainder(coord, period)
+    return torch.where(c > size - 1, period - c, c)
+
+
+def _bilinear_sample(img: torch.Tensor, ys: torch.Tensor,
+                     xs: torch.Tensor) -> torch.Tensor:
+    """img [C, H, W] sampled at coordinates ys, xs [h, w] (reflect-101
+    borders): [C, h, w]."""
+    h, w = img.shape[-2:]
+    ys = _reflect101(ys, h)
+    xs = _reflect101(xs, w)
+    y0 = torch.floor(ys)
+    x0 = torch.floor(xs)
+    wy, wx = ys - y0, xs - x0
+    y0 = y0.long().clamp(0, h - 1)
+    x0 = x0.long().clamp(0, w - 1)
+    y1 = (y0 + 1).clamp(max=h - 1)
+    x1 = (x0 + 1).clamp(max=w - 1)
+    top = img[:, y0, x0] * (1 - wx) + img[:, y0, x1] * wx
+    bot = img[:, y1, x0] * (1 - wx) + img[:, y1, x1] * wx
+    return top * (1 - wy) + bot * wy
+
+
+def affine_warp(img: torch.Tensor, inv_matrix: torch.Tensor,
+                out_hw: Sequence[int]) -> torch.Tensor:
+    """Warp [C, H, W] by the inverse affine ``inv_matrix`` [2, 3] (output
+    (x, y, 1) -> input (x, y)), bilinear with reflect-101 borders:
+    [C, out_h, out_w]."""
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    m = inv_matrix.to(torch.float32)
+    ys, xs = _axes(oh, ow, img.device)
+    ys, xs = ys[:, None].expand(oh, ow), xs[None, :].expand(oh, ow)
+    in_x = m[0, 0] * xs + m[0, 1] * ys + m[0, 2]
+    in_y = m[1, 0] * xs + m[1, 1] * ys + m[1, 2]
+    return _bilinear_sample(img, in_y, in_x)
+
+
+def _compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[2, 3] affines: result(x) = a(b(x))."""
+    row = torch.tensor([[0.0, 0.0, 1.0]], dtype=a.dtype, device=a.device)
+    return (torch.cat([a, row]) @ torch.cat([b, row]))[:2]
+
+
+def _crop_resize(x0, y0, cw, ch, out_w: int, out_h: int) -> torch.Tensor:
+    """The forward affine taking input px in the crop box to output px."""
+    sx, sy = out_w / cw, out_h / ch
+    zero = torch.zeros_like(sx)
+    return torch.stack([torch.stack([sx, zero, -x0 * sx]),
+                        torch.stack([zero, sy, -y0 * sy])])
+
+
+def _invert(m: torch.Tensor) -> torch.Tensor:
+    """The inverse of a [2, 3] affine."""
+    a, b, c = m[0]
+    d, e, f = m[1]
+    det = a * e - b * d
+    ia, ib = e / det, -b / det
+    id_, ie = -d / det, a / det
+    return torch.stack([torch.stack([ia, ib, -(ia * c + ib * f)]),
+                        torch.stack([id_, ie, -(id_ * c + ie * f)])])
+
+
+@dataclass
+class TrainAffineDraws:
+    """The five uniforms of one ``sample_train_affine`` call, 0-dim fp32."""
+    angle: torch.Tensor       # degrees, in +-rotate_limit
+    scale: torch.Tensor       # crop area fraction, in scale_range
+    log_ratio: torch.Tensor   # in log(ratio_range)
+    x: torch.Tensor           # crop origin fractions, in [0, 1)
+    y: torch.Tensor
+
+
+def sample_train_affine(gen: torch.Generator, in_hw: Sequence[int],
+                        rotate_limit: float = 40.0,
+                        scale_range: Sequence[float] = (0.4, 1.0),
+                        ratio_range: Sequence[float] = (0.4, 1.6)
+                        ) -> TrainAffineDraws:
+    """Draw one example's Rotate(+-rotate_limit) then RandomResizedCrop
+    (scale, ratio) parameters from ``gen``; ``train_affine_core(draws,
+    in_hw)`` makes the matrix.  ``in_hw`` keeps the JAX signature: the
+    draws do not depend on it."""
+    def draw(lo, hi):
+        return _uniform(gen, 1, lo, hi)[0]
+
+    return TrainAffineDraws(draw(-rotate_limit, rotate_limit),
+                            draw(scale_range[0], scale_range[1]),
+                            draw(math.log(ratio_range[0]),
+                                 math.log(ratio_range[1])),
+                            draw(0.0, 1.0), draw(0.0, 1.0))
+
+
+def train_affine_core(draws: TrainAffineDraws, in_hw: Sequence[int]
+                      ) -> torch.Tensor:
+    """The forward [2, 3] affine (input px -> output px) of Rotate(angle
+    about the center) then the crop of ``draws`` resized back to
+    ``in_hw``, torchvision-style: area fraction and log aspect ratio."""
+    h, w = int(in_hw[0]), int(in_hw[1])
+    rot = _rotation_about(w / 2.0, h / 2.0, draws.angle * math.pi / 180.0)
+    area = h * w * draws.scale
+    aspect = torch.exp(draws.log_ratio)
+    cw = torch.clamp(torch.sqrt(area * aspect), 8.0, w)
+    ch = torch.clamp(torch.sqrt(area / aspect), 8.0, h)
+    crop = _crop_resize(draws.x * (w - cw), draws.y * (h - ch), cw, ch, w, h)
+    return _compose(crop, rot)
+
+
 def _interp_weights(src: torch.Tensor, n_in: int,
                     dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Linear-interpolation weight rows for sample coordinates ``src``
@@ -145,6 +256,14 @@ def rotate_shear3_grouped(img: torch.Tensor, angles: torch.Tensor,
     grouped = _shear_y_grouped(grouped, beta, cx)
     grouped = _shear_x_grouped(grouped, alpha, cy)
     return grouped.reshape((b,) + tuple(grouped.shape[2:]))
+
+
+def rotate_shear3(img: torch.Tensor, angle, cy: float, cx: float
+                  ) -> torch.Tensor:
+    """Rotate [B, C, H, W] by one ``angle`` (radians) about (cx, cy): the
+    one-group case of ``rotate_shear3_grouped``.  Returns fp32."""
+    angle = torch.as_tensor(angle, dtype=torch.float32, device=img.device)
+    return rotate_shear3_grouped(img, angle.reshape(1), cy, cx)
 
 
 def n_angle_groups(batch: int, requested: int) -> int:
@@ -262,6 +381,45 @@ def color_jitter_batch(imgs: torch.Tensor, brightness: torch.Tensor,
     if apply is not None:
         out = torch.where(apply[:, None, None, None], out, imgs)
     return out
+
+
+@dataclass
+class JitterDraws:
+    """The parameters of one ``color_jitter`` call: 0-dim factors and the
+    op order, a permutation of (brightness, contrast, saturation, hue)."""
+    brightness: torch.Tensor
+    contrast: torch.Tensor
+    saturation: torch.Tensor
+    hue: torch.Tensor
+    order: Tuple[int, ...]
+
+
+def color_jitter_core(img: torch.Tensor, draws: JitterDraws) -> torch.Tensor:
+    """ColorJitter on one [3, H, W] image in [0, 1] with ``draws`` (moved
+    to the image's device): the one-image case of ``color_jitter_batch``."""
+    factors = (f.reshape(1).to(img.device)
+               for f in (draws.brightness, draws.contrast, draws.saturation,
+                         draws.hue))
+    return color_jitter_batch(img[None], *factors,
+                              JITTER_ORDERS.index(tuple(draws.order)))[0]
+
+
+def color_jitter(gen: torch.Generator, img: torch.Tensor,
+                 brightness: float = 0.5, contrast: float = 0.2,
+                 saturation: float = 0.5, hue: float = 0.1,
+                 host_gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """torchvision-style ColorJitter on one [3, H, W] image in [0, 1]:
+    factors uniform in 1 +- (brightness, contrast, saturation) and hue
+    +-hue from ``gen``, the ops in a random order from ``host_gen`` (a CPU
+    generator; defaults to ``gen`` when that is on the CPU)."""
+    host_gen = _host(gen, host_gen)
+    draws = JitterDraws(
+        _uniform(gen, 1, 1 - brightness, 1 + brightness)[0],
+        _uniform(gen, 1, 1 - contrast, 1 + contrast)[0],
+        _uniform(gen, 1, 1 - saturation, 1 + saturation)[0],
+        _uniform(gen, 1, -hue, hue)[0],
+        tuple(torch.randperm(4, generator=host_gen).tolist()))
+    return color_jitter_core(img, draws)
 
 
 # --------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 # The port's accuracy path on one GPU, from the repo root:
 #
 #   [ARMS="sbp spm"] [SPM_EPOCHS=90] [SPM_SEEDS="0"] [HARD_EPOCHS=250] \
-#   bash pytorch_pose_estimation_tpu_torch/tools/accuracy_on_card.sh \
+#   [HARD_RECIPES="hard"] bash pytorch_pose_estimation_tpu_torch/tools/accuracy_on_card.sh \
 #       [OUT_DIR=saved/accuracy] [PIS_SEEDS="0"]
 #
 # ARMS selects the arms: "sbp" runs steps a-d, "spm" step e, "spm_hard"
@@ -31,13 +31,18 @@
 #    checkpoint, its log in spm_s<seed>_train_<N>.log), the trajectory at
 #    156 steps an epoch over every attempt's log, test_spm and
 #    inference_spm --limit 8 of the newest run's `best`;
-# f. spm_synth_hard: configs/spm_synth_hard.yaml's corpus (tools.spm_ref
-#    corpus --recipe hard: 256 train and 48 val images of 5-8 persons),
-#    a copy of the YAML with `epochs: $HARD_EPOCHS` and nothing else
-#    changed (8 steps an epoch: 250 epochs are yolo_lr's 2,000 steps) but
-#    `save_last_every_n_epochs: 25` appended (a card host counts every
-#    byte written: `last` every epoch would be 73 GB), train_spm --resume
-#    auto, the trajectory, test_spm of `best`.
+# f. spm_synth_hard, for each corpus of HARD_RECIPES: "hard" is
+#    configs/spm_synth_hard.yaml's (tools.spm_ref corpus --recipe hard:
+#    256 train and 48 val images of 5-8 persons), "hard3" the 1-3-person
+#    one (--recipe hard3: make_dataset's defaults, the same counts and
+#    seeds, under ./data/spm_hard3, its copies saving under
+#    ./saved/spm_hard3); a copy of the YAML with `epochs: $HARD_EPOCHS`
+#    and nothing else changed (8 steps an epoch: 250 epochs are yolo_lr's
+#    2,000 steps) but `save_last_every_n_epochs: 25` appended (a card host
+#    counts every byte written: `last` every epoch would be 73 GB),
+#    train_spm --resume auto, the trajectory, test_spm of `best`.  Where
+#    SPM_SEEDS is given, once per seed as in (e): `seed: N` appended and
+#    `save_dir: ./saved/spm_<recipe>_s<N>`, logs spm_<recipe>_s<N>_*.
 # Every command's output goes to OUT_DIR/<step>.log; OUT_DIR/summary.txt
 # collects the numbers.  Corpus, memo and checkpoints stay under ./data,
 # ./saved and ./saved_ab.
@@ -47,8 +52,10 @@ PIS_SEEDS=${2:-0}
 PIS_EPOCHS=140  # the JAX run stopped at about epoch 135
 ARMS=${ARMS:-sbp spm}
 SPM_EPOCHS=${SPM_EPOCHS:-90}  # JAX's last validation was at epoch 89
+HARD_SEEDS=${SPM_SEEDS:-}  # the hard arm runs the YAML's own seed unless given
 SPM_SEEDS=${SPM_SEEDS:-0}
 HARD_EPOCHS=${HARD_EPOCHS:-250}
+HARD_RECIPES=${HARD_RECIPES:-hard}
 PY=${PYTHON:-python3}
 M=pytorch_pose_estimation_tpu_torch
 mkdir -p "$OUT"
@@ -86,8 +93,9 @@ spm_run() {  # spm_run TAG RECIPE EPOCHS [SEED]: config copy, train, trajectory,
         sed -i -E "s|^save_dir *:.*|save_dir : './saved/$tag'|" "$cfg"
     fi
     # `last` of 293 MB every epoch would write 73 GB in 250 epochs
-    [ "$recipe" = hard ] && echo "save_last_every_n_epochs: 25" >> "$cfg"
-    say "$tag config: $cfg, $(diff "configs/spm_synth_$recipe.yaml" "$cfg" | grep -E '^[<>]' | tr '\n' ' ')"
+    [[ "$recipe" == hard* ]] && echo "save_last_every_n_epochs: 25" >> "$cfg"
+    local yaml; yaml=$($PY -c "from $M.tools.spm_ref import RECIPES; print(RECIPES['$recipe'][2])")
+    say "$tag config: $cfg, $(diff "$yaml" "$cfg" | grep -E '^[<>]' | tr '\n' ' ')"
     local n=1; while [ -e "$OUT/${tag}_train_$n.log" ]; do n=$((n + 1)); done
     step ${tag}_train_$n $PY -u -m $M.train_spm --cfg "$cfg" --resume auto
     grep -E "auto-resume|resuming|device cache" "$OUT/${tag}_train_$n.log" | tee -a "$SUM"
@@ -176,9 +184,16 @@ done
 fi
 
 if arm spm_hard; then
-# f. spm_synth_hard
-step hard_corpus $PY -m $M.tools.spm_ref corpus --recipe hard
-tee -a "$SUM" < "$OUT/hard_corpus.log"
-spm_run spm_hard hard "$HARD_EPOCHS"
+# f. spm_synth_hard, per corpus and seed
+for RECIPE in $HARD_RECIPES; do
+    step ${RECIPE}_corpus $PY -m $M.tools.spm_ref corpus --recipe "$RECIPE"
+    tee -a "$SUM" < "$OUT/${RECIPE}_corpus.log"
+    if [ -z "$HARD_SEEDS" ]; then
+        spm_run spm_$RECIPE "$RECIPE" "$HARD_EPOCHS"
+    fi
+    for SEED in $HARD_SEEDS; do
+        spm_run spm_${RECIPE}_s$SEED "$RECIPE" "$HARD_EPOCHS" "$SEED"
+    done
+done
 fi
 say "done"

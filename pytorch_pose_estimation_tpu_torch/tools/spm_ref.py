@@ -1,19 +1,21 @@
 """SPM on the synthetic corpora: the corpora of configs/spm_synth_ref.yaml
-(``ref``) and configs/spm_synth_hard.yaml (``hard``), rebuilt from the
-repo's synthetic fixture, and each config's copy for a run of another
-length.  From the repo root:
+(``ref``) and configs/spm_synth_hard.yaml (``hard``, and ``hard3`` beside
+it), rebuilt from the repo's synthetic fixture, and each config's copy for
+a run of another length.  From the repo root:
 
     python -m pytorch_pose_estimation_tpu_torch.tools.spm_ref corpus \\
-        [ROOT] [--recipe ref|hard] [--fixture tests/synth_fixture.py]
+        [ROOT] [--recipe ref|hard|hard3] [--fixture tests/synth_fixture.py]
     python -m pytorch_pose_estimation_tpu_torch.tools.spm_ref config OUT \\
-        [--recipe ref|hard] [--epochs 90] [--src YAML]
+        [--recipe ref|hard|hard3] [--epochs 90] [--src YAML]
 
 ``corpus`` writes the JPEG images and their annotation files under ROOT
-(the recipe's ``./data/spm_ref`` or ``./data/spm_hard`` by default),
-prints the image and instance counts it wrote, and fails on an image
-count, or on an instance count where the recipe has one, that is not the
-recipe's.  ``config`` copies the YAML with its ``epochs`` line replaced
-and nothing else changed.
+(the recipe's ``./data/spm_ref``, ``./data/spm_hard`` or
+``./data/spm_hard3`` by default), prints the image and instance counts it
+wrote, and fails on an image count, or on an instance count where the
+recipe has one, that is not the recipe's.  ``config`` copies the YAML with
+its ``epochs`` line replaced and nothing else changed, but for a recipe
+whose root is not the YAML's ``img_dir`` (``hard3``): its copy reads the
+corpus from that root and saves under ``./saved/<root's name>``.
 
 * ``ref``: 640x512 hard multi-person scenes (3-8 overlapping persons, 8
   distractor shapes, torso occlusion at p 0.3, 36-300 px scale jitter),
@@ -32,6 +34,9 @@ and nothing else changed.
   epochs).  The header's "2.5k-step run" does not fit 256 train images:
   250 epochs of them are 2,000 steps.  ``SPM_SYNTH_HARD`` holds the
   YAML's values inline.
+* ``hard3``: the 1-3-person corpus (``make_dataset``'s defaults, PARITY.md's
+  "3-person" reading of the JAX run), with ``hard``'s counts and seeds and
+  configs/spm_synth_hard.yaml otherwise, under ``./data/spm_hard3``.
 """
 
 from __future__ import annotations
@@ -55,7 +60,8 @@ HARD_SPLITS = {"train2017": (256, 0, None), "val2017": (48, 1, None)}
 HARD_CONFIG = "configs/spm_synth_hard.yaml"
 # recipe -> (make_dataset's arguments, splits, YAML, default root)
 RECIPES = {"ref": (CORPUS, SPLITS, CONFIG, "./data/spm_ref"),
-           "hard": (HARD_CORPUS, HARD_SPLITS, HARD_CONFIG, "./data/spm_hard")}
+           "hard": (HARD_CORPUS, HARD_SPLITS, HARD_CONFIG, "./data/spm_hard"),
+           "hard3": ({}, HARD_SPLITS, HARD_CONFIG, "./data/spm_hard3")}
 COCO_KP_NAMES = [
     "nose", "left_eye", "right_eye", "left_ear", "right_ear",
     "left_shoulder", "right_shoulder", "left_elbow", "right_elbow",
@@ -130,15 +136,24 @@ def make_corpus(root: str, fixture: str = "tests/synth_fixture.py",
     return out
 
 
-def write_config(out: str, epochs: int, src: str = CONFIG) -> str:
+def write_config(out: str, epochs: int, src: str = CONFIG,
+                 root: str | None = None) -> str:
     """Copy ``src`` to ``out`` with ``epochs: <epochs>``; every other line
-    stays as it is."""
+    stays as it is, but where ``root`` is given and is not the YAML's
+    ``img_dir``: then the data paths read ``root`` and ``save_dir`` is
+    ``./saved/<root's name>``."""
     with open(src) as f:
         text = f.read()
     text, n = re.subn(r"(?m)^epochs:[ \t]*\d+[ \t]*$", f"epochs: {int(epochs)}",
                       text)
     if n != 1:
         raise ValueError(f"{src}: {n} 'epochs:' lines, expected 1")
+    img_dir = re.search(r"(?m)^img_dir *: *'([^']*)'", text).group(1)
+    if root is not None and root != img_dir:
+        text = re.sub(r"(?<=')" + re.escape(img_dir) + r"(?=[/'])", root,
+                      text)
+        text = re.sub(r"(?m)^save_dir *:.*$",
+                      f"save_dir : './saved/{os.path.basename(root)}'", text)
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as f:
         f.write(text)
@@ -166,7 +181,8 @@ def main(argv=None):
                 recipe=args.recipe).items():
             print(f"{split}: {n} images, {inst} instances: {path}")
     else:
-        print(write_config(args.out, args.epochs, args.src or yaml_path))
+        print(write_config(args.out, args.epochs, args.src or yaml_path,
+                           root))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 from .checkpoint import (CheckpointManager, extract_backbone,
                          load_backbone, load_pretrained, next_version_dir,
                          restore_checkpoint, restore_checkpoint_flexible,
-                         save_checkpoint)
+                         restore_params, save_checkpoint, save_params)
 from .device_cache import DeviceDataCache, build_device_cache
 from .state import TrainState
 from .steps import (make_sbp_eval_step, make_sbp_steps, make_spm_eval_step,
@@ -34,7 +34,9 @@ __all__ = [
     "resolve_device",
     "restore_checkpoint",
     "restore_checkpoint_flexible",
+    "restore_params",
     "save_checkpoint",
+    "save_params",
     "to_device",
     "validate",
 ]

@@ -145,6 +145,24 @@ def restore_checkpoint_flexible(path: str, state: TrainState) -> dict:
     return {}
 
 
+def save_params(path: str, state_dict: dict) -> str:
+    """Write a bare model ``state_dict`` (BN running statistics included,
+    no optimizer state), its tensors on the CPU, atomically; under several
+    ranks rank 0 writes and every rank waits until it has."""
+    path = os.path.abspath(path)
+    if mesh.is_main():
+        _save_atomic({k: v.detach().cpu() for k, v in state_dict.items()},
+                     path)
+    mesh.barrier()
+    return path
+
+
+def restore_params(path: str) -> dict:
+    """The model state_dict of ``path``: a ``save_params`` file, or any
+    file ``load_state_dict_file`` reads."""
+    return load_state_dict_file(path)
+
+
 def extract_backbone(ckpt_path: str, out_path: str) -> str:
     """Save only the backbone's entries of a checkpoint's model state (the
     reference's 'pretrained_weights.pt' warm-start artifact)."""

@@ -10,8 +10,10 @@ Tolerances: eval logits 1e-4 of the largest (fp32 sums in another order,
 as the SBP logits); the train step's loss 1e-5 relative (measured 2.3e-6:
 a log-softmax of 10 logits of about 1, each a few 1e-6 off after 19
 blocks, where SBP's loss sums thousands of map pixels and agrees to 1e-6),
-each parameter's update 2e-2 of its norm and BN statistics 1e-4 (the SBP
-train step's); weights, data, checkpoints and warm starts: equal.
+each parameter's update within the one-ulp yardstick of
+tests/_torch_update_gap.py, against JAX with flax's two-pass BN variance,
+and BN statistics 1e-4 (the SBP train step's); weights, data, checkpoints
+and warm starts: equal.
 """
 
 import json
@@ -23,6 +25,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from flax import linen as fnn
 
 from pytorch_pose_estimation_tpu import optim as jax_optim
 from pytorch_pose_estimation_tpu import registry as jax_registry
@@ -49,6 +52,7 @@ from pytorch_pose_estimation_tpu_torch.models.darknet import (
     STAGE_NAMES, dropout_core, sample_dropout_mask)
 from pytorch_pose_estimation_tpu_torch.train import Trainer
 
+import _torch_update_gap as G
 from test_classifier import _make_imagefolder
 
 C = 10  # classes
@@ -148,17 +152,26 @@ def test_dropout_sampler_and_core():
     assert dropout_core(xb, keep).dtype == torch.bfloat16
 
 
-def test_train_step_matches_jax(variables):
-    """One fp32 train step: JAX's train_classifier step (dropout from a
-    key, one-hot log-softmax loss, nesterov SGD with weight decay) against
-    ``make_classifier_steps`` fed JAX's dropout mask, read from the dropout
-    module's output through ``capture_intermediates`` (kept where it is
-    non-zero; where its input is 0 the mask does not matter)."""
+SGD = dict(momentum=0.9, weight_decay=5e-4, nesterov=True)
+
+
+def _step_inputs():
     rng = np.random.RandomState(2)
     images = rng.randint(0, 256, (4, HW, HW, 3), dtype=np.uint8)
-    labels = np.array([1, 7, 3, 1], np.int32)
-    sgd = dict(momentum=0.9, weight_decay=5e-4, nesterov=True)
-    tx = jax_optim.get_optimizer("sgd", lr=1e-2, **sgd)
+    return images, np.array([1, 7, 3, 1], np.int32)
+
+
+class _TwoPassBatchNorm(fnn.BatchNorm):
+    """flax's BatchNorm with its two-pass batch variance."""
+    use_fast_variance: bool = False
+
+
+def _jax_step(variables, two_pass: bool):
+    """JAX's train_classifier step (dropout from a key, one-hot
+    log-softmax loss, nesterov SGD with weight decay), fp32 at "highest"
+    precision; flax's BatchNorm as it is, or with its two-pass variance."""
+    images, labels = _step_inputs()
+    tx = jax_optim.get_optimizer("sgd", lr=1e-2, **SGD)
     model = JaxDarknet19(num_classes=C)
     params, stats = variables["params"], variables["batch_stats"]
 
@@ -181,35 +194,133 @@ def test_train_step_matches_jax(variables):
         updates, _ = tx.update(grads, tx.init(params), params)
         return loss, mutated, logits, optax.apply_updates(params, updates)
 
-    with jax.default_matmul_precision("highest"):
-        loss, mutated, logits, new_params = jax_step(params)
+    with pytest.MonkeyPatch.context() as mp:
+        if two_pass:
+            mp.setattr(fnn, "BatchNorm", _TwoPassBatchNorm)
+        with jax.default_matmul_precision("highest"):
+            loss, mutated, logits, new_params = jax_step(params)
     dropped = np.asarray(mutated["intermediates"]["dropout"]["__call__"][0])
-    mask = torch.from_numpy(dropped.transpose(0, 3, 1, 2) != 0)
-
-    port = _port(variables)
-    start = {k: v.clone() for k, v in port.state_dict().items()}
-    opt = optim.get_optimizer("sgd", list(port.parameters()), lr=1e-2, **sgd)
-    step, eval_step = train_classifier.make_classifier_steps(port, opt, C)
-    got, acc = step(torch.from_numpy(images), torch.from_numpy(labels),
-                    mask=mask)
-    np.testing.assert_allclose(float(got), float(loss), rtol=1e-5)
-    want_acc = float(np.mean(np.argmax(np.asarray(logits), -1) == labels))
-    assert float(acc) == want_acc
     want = from_jax_variables({"params": _np(new_params),
                                "batch_stats": _np(mutated["batch_stats"])},
                               "classifier")
-    sd = port.state_dict()
-    for name, _ in port.named_parameters():
-        jax_update = want[name] - start[name]
-        gap = float((sd[name] - start[name] - jax_update).norm()
-                    / jax_update.norm())
-        assert gap <= 2e-2, (name, gap)
-    for k in sd:
-        if k.endswith(("running_mean", "running_var")):
-            assert float((sd[k] - want[k]).abs().max()
-                         / want[k].abs().max()) <= 1e-4, k
-    hits = eval_step(torch.from_numpy(images), torch.from_numpy(labels))
-    assert 0 <= float(hits) <= 4 and not port.training
+    return {"loss": float(loss), "logits": np.asarray(logits),
+            "mask": torch.from_numpy(dropped.transpose(0, 3, 1, 2) != 0),
+            "state": want}
+
+
+def _port_step(start: dict, mask: torch.Tensor, bn_momentum=None, **sgd):
+    """The port's ``make_classifier_steps`` from state_dict ``start``, fed
+    the keep mask; ``bn_momentum`` (name, value) sets one BN's momentum."""
+    images, labels = _step_inputs()
+    port = Darknet19Classifier(C)
+    port.load_state_dict(start)
+    if bn_momentum is not None:
+        port.get_submodule(bn_momentum[0]).momentum = bn_momentum[1]
+    opt = optim.get_optimizer("sgd", list(port.parameters()), lr=1e-2,
+                              **dict(SGD, **sgd))
+    step, eval_step = train_classifier.make_classifier_steps(port, opt, C)
+    loss, acc = step(torch.from_numpy(images), torch.from_numpy(labels),
+                     mask=mask)
+    return {"loss": float(loss), "acc": float(acc), "eval_step": eval_step,
+            "port": port, "state": port.state_dict()}
+
+
+@pytest.fixture(scope="module")
+def step_case(variables):
+    """JAX's step with flax's BatchNorm as it is and with its two-pass
+    variance, the port's step fed the two-pass run's dropout mask, and the
+    one-ulp yardstick (tests/_torch_update_gap.py).  JAX's mask is read
+    from the dropout module's output through ``capture_intermediates``
+    (kept where it is non-zero; where its input is 0 the mask does not
+    matter)."""
+    jax_runs = {two_pass: _jax_step(variables, two_pass)
+                for two_pass in (False, True)}
+    mask = jax_runs[True]["mask"]
+    start = from_jax_variables(variables, "classifier")
+    port = _port_step(start, mask)
+    names = [n for n, _ in port["port"].named_parameters()]
+    ulp = G.ulp_gaps(lambda sd: _port_step(sd, mask)["state"], start,
+                     port["state"], names)
+    return {"jax": jax_runs[False], "jax_two_pass": jax_runs[True],
+            "port": port, "start": start, "names": names, "ulp": ulp,
+            "mask": mask}
+
+
+def test_train_step_matches_jax(step_case):
+    """One fp32 train step against JAX's, both fed the same dropout mask:
+    the loss to 1e-5 relative, the accuracy equal, every parameter's update
+    within the one-ulp yardstick's factors (tests/_torch_update_gap.py) of
+    JAX's with flax's two-pass BN variance, the BN running statistics to
+    1e-4.  Against flax's default one-pass variance the gap is about ten
+    times larger: test_one_pass_variance_is_the_classifier_gap."""
+    jax_run, port = step_case["jax_two_pass"], step_case["port"]
+    _, labels = _step_inputs()
+    np.testing.assert_allclose(port["loss"], jax_run["loss"], rtol=1e-5)
+    np.testing.assert_allclose(port["loss"], step_case["jax"]["loss"],
+                               rtol=1e-5)
+    want_acc = float(np.mean(np.argmax(jax_run["logits"], -1) == labels))
+    assert port["acc"] == want_acc
+    G.assert_update_close(port["state"], jax_run["state"], step_case["start"],
+                          step_case["ulp"], step_case["names"],
+                          label="classifier train step, two-pass BN")
+    images, _ = _step_inputs()
+    hits = port["eval_step"](torch.from_numpy(images),
+                             torch.from_numpy(labels))
+    assert 0 <= float(hits) <= 4 and not port["port"].training
+
+
+def test_one_pass_variance_is_the_classifier_gap(step_case):
+    """ROADMAP Queue 3: against JAX with flax's default BatchNorm, whose
+    one-pass batch variance E[x^2] - E[x]^2 XLA's CPU backend sums in a
+    running fp32 sum (tests/test_torch_port_bn_variance.py), the port's
+    update is over five times further than against the same step with
+    flax's two-pass variance, and the yardstick check flags it.  The
+    classifier feels it most: its deep BN layers normalize 16 values a
+    channel (4 images of 2x2) whose mean is large next to their spread.
+    The gap lies in the reference's rounding, not in the port."""
+    port, names = step_case["port"]["state"], step_case["names"]
+    one = G.update_gaps(port, step_case["jax"]["state"], names,
+                        step_case["start"])
+    two = G.update_gaps(port, step_case["jax_two_pass"]["state"], names,
+                        step_case["start"])
+    print(f"classifier update gap to JAX: one-pass BN median "
+          f"{np.median(one):.3g}, max {one.max():.3g}; two-pass median "
+          f"{np.median(two):.3g}, max {two.max():.3g}")
+    assert np.median(one) > 5 * np.median(two)
+    assert G.update_failures(port, step_case["jax"]["state"],
+                             step_case["start"], step_case["ulp"], names,
+                             label="classifier train step, one-pass BN")
+
+
+MUTATIONS = {
+    "weight_decay_5.5e-4": dict(weight_decay=5.5e-4),
+    "nesterov_off": dict(nesterov=False),
+    "bn_momentum_layer3.1": dict(bn_momentum=("layer3.1.bn", 0.15)),
+    "dropout_channel_flipped": dict(flip_channel=0),
+}
+
+
+@pytest.mark.parametrize("mutation", sorted(MUTATIONS))
+def test_update_check_flags_a_wrong_step(step_case, mutation):
+    """The yardstick check flags a step changed in one way, as the fixed
+    2e-2 per-parameter limit it replaced does where that one flags it (both
+    against the two-pass JAX step, which the unchanged port passes)."""
+    over = dict(MUTATIONS[mutation])
+    mask = step_case["mask"].clone()
+    if "flip_channel" in over:
+        c = over.pop("flip_channel")
+        mask[:, c] = ~mask[:, c]
+    got = _port_step(step_case["start"], mask, **over)["state"]
+    want, names = step_case["jax_two_pass"]["state"], step_case["names"]
+    flagged = G.update_failures(got, want, step_case["start"],
+                                step_case["ulp"], names, label=mutation)
+    old = [n for n, g in zip(names, G.update_gaps(got, want, names,
+                                                  step_case["start"]))
+           if g > 2e-2] + [k for k, g in G.stats_gaps(got, want).items()
+                           if g > G.STATS_BOUND]
+    print(f"{mutation}: the yardstick flags {flagged[:3]}; the old limit "
+          f"{len(old)} tensors")
+    assert flagged
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""The port's ``test_coco_keypoints_map``, ``weight_initialize`` and the
-hourglass blocks against the JAX package's, on the CPU.
+"""The port's ``test_coco_keypoints_map``, ``weight_initialize``, the
+hourglass blocks, ``save_params`` / ``restore_params`` and ``summarize``
+against the JAX package's, on the CPU.
 
 Tolerances: the 10 COCO stats 1e-12 (the same NumPy arithmetic on both
 sides); the Xavier bounds 1e-7 relative (float32 in JAX, float64 here);
@@ -21,14 +22,23 @@ from pytorch_pose_estimation_tpu.models.hourglass import \
     Hourglass as JaxHourglass
 from pytorch_pose_estimation_tpu.models.hourglass import \
     Residual as JaxResidual
+from pytorch_pose_estimation_tpu.models import SPM as JaxSPM
+from pytorch_pose_estimation_tpu.models.darknet import \
+    Darknet19 as JaxDarknet19
 from pytorch_pose_estimation_tpu.models.initialize import \
     weight_initialize as jax_weight_initialize
+from pytorch_pose_estimation_tpu.models.summary import \
+    summarize as jax_summarize
 from pytorch_pose_estimation_tpu_torch import test_coco_keypoints_map
-from pytorch_pose_estimation_tpu_torch.models import SBP, from_jax_variables
+from pytorch_pose_estimation_tpu_torch.models import (
+    SBP, SPM, Darknet19Classifier, from_jax_variables, lecun_normal_,
+    load_state_dict_file, print_summary, summarize)
 from pytorch_pose_estimation_tpu_torch.models.hourglass import (
     Hourglass, Residual, hourglass_state_dict)
 from pytorch_pose_estimation_tpu_torch.models.initialize import (
     weight_initialize, xavier_limit)
+from pytorch_pose_estimation_tpu_torch.train import (
+    TrainState, restore_checkpoint_flexible, restore_params, save_params)
 
 from synth_fixture import make_dataset
 
@@ -148,3 +158,68 @@ def test_hourglass_blocks_match_flax(name, cin, features, depth):
             tol = 1e-4 if train else 1e-5
             np.testing.assert_allclose(got, want, rtol=0,
                                        atol=tol * np.abs(want).max())
+
+
+# --------------------------------------------------------------------------
+# save_params / restore_params and summarize
+# --------------------------------------------------------------------------
+
+def test_save_params_round_trips_and_flexible_restore_reads_it(tmp_path):
+    """A bare state_dict (BN running statistics included, no optimizer
+    state) round-trips bit for bit, leaves no temporary file, and the
+    readers of a model file take it: ``restore_checkpoint_flexible`` (as
+    JAX's falls back to ``restore_params``, train/checkpoint.py:110-118)
+    and ``load_state_dict_file``."""
+    model = lecun_normal_(SBP(17), torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for name, b in model.named_buffers():
+            if name.endswith(("running_mean", "running_var")):
+                b.uniform_(0.5, 1.5, generator=gen)
+    want = model.state_dict()
+    path = save_params(str(tmp_path / "params.pt"), want)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["params.pt"]
+    for got in (restore_params(path), load_state_dict_file(path)):
+        assert list(got) == list(want)
+        for k, v in want.items():
+            assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+    state = TrainState(SBP(17), None, None)
+    assert restore_checkpoint_flexible(path, state) == {}
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(v, want[k]), k
+    other = SBP(17).state_dict()
+    assert save_params(path, other) == path  # overwritten
+    assert torch.equal(restore_params(path)["sbp_head.0.weight"],
+                       other["sbp_head.0.weight"])
+
+
+SUMMARY_MODELS = {
+    "sbp": (lambda: SBP(17), lambda: JaxSBP(num_keypoints=17),
+            {"backbone": "backbone_features_module", "head": "sbp_head"}),
+    "spm": (lambda: SPM(17), lambda: JaxSPM(num_keypoints=17),
+            {"backbone": "backbone_features_module", "head": "spm_head"}),
+    "classifier": (lambda: Darknet19Classifier(10),
+                   lambda: JaxDarknet19(num_classes=10), {}),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(SUMMARY_MODELS))
+def test_summarize_matches_jax(kind, capsys):
+    """The same dict as JAX's ``summarize`` at a 64x64 input, NCHW for
+    NHWC and the reference's module names for flax's; ``print_summary``
+    prints it and returns it."""
+    port, jax_model, names = SUMMARY_MODELS[kind]
+    got = summarize(port(), (1, 3, 64, 64))
+    want = jax_summarize(jax_model(), (1, 64, 64, 3))
+    def nhwc(shape):
+        return (shape[0],) + shape[2:] + shape[1:2] if len(shape) == 4 \
+            else shape
+
+    assert nhwc(got["input_shape"]) == want["input_shape"]
+    assert nhwc(got["output_shape"]) == want["output_shape"]
+    assert got["params_per_module"] == {
+        names.get(k, k): n for k, n in want["params_per_module"].items()}
+    assert (got["total_params"], got["batch_stats"]) == \
+        (want["total_params"], want["batch_stats"])
+    assert print_summary(port(), (1, 3, 64, 64)) == got
+    assert f"{got['total_params']:,}" in capsys.readouterr().out

@@ -1,10 +1,13 @@
 """configs/spm_synth_hard.yaml in the port, on the CPU: the ``hard`` recipe
 of ``tools.spm_ref`` (its corpus: ``make_dataset`` with 5-8 persons an
-image, 256 train images with seed 0 and 48 val with seed 1), the config
-copy of the accuracy arm, the inline ``SPM_SYNTH_HARD`` of chip_smoke.py's
-phase 15, and what ``tools/accuracy_on_card.sh`` writes into the configs
-of its ``spm`` arm (a ``seed`` for each entry of ``SPM_SEEDS``) and of its
-``spm_hard`` arm, run with a stand-in interpreter that records each
+image, 256 train images with seed 0 and 48 val with seed 1) and the
+``hard3`` one beside it (``make_dataset``'s 1-3 persons, the same counts
+and seeds, its own root and ``save_dir``), the config copies of the
+accuracy arm, the inline ``SPM_SYNTH_HARD`` of chip_smoke.py's phase 15,
+and what ``tools/accuracy_on_card.sh`` writes into the configs of its
+``spm`` arm (a ``seed`` for each entry of ``SPM_SEEDS``) and of its
+``spm_hard`` arm (each corpus of ``HARD_RECIPES``, each seed of
+``SPM_SEEDS``), run with a stand-in interpreter that records each
 training command's config and runs ``tools.spm_ref config`` for real.
 Every comparison is exact.
 """
@@ -43,8 +46,55 @@ def test_hard_recipe_pins_the_runs_counts_and_seeds():
                                        spm_ref.HARD_SPLITS,
                                        "configs/spm_synth_hard.yaml",
                                        "./data/spm_hard")
-    assert sorted(spm_ref.RECIPES) == ["hard", "ref"]
+    assert spm_ref.RECIPES["hard3"] == ({}, spm_ref.HARD_SPLITS,
+                                        "configs/spm_synth_hard.yaml",
+                                        "./data/spm_hard3")
+    assert sorted(spm_ref.RECIPES) == ["hard", "hard3", "ref"]
     assert spm_ref.SPM_SYNTH_HARD["img_dir"] == "./data/spm_hard"
+
+
+def test_hard3_corpus_is_make_dataset_defaults(tmp_path):
+    """At tiny counts, ``--recipe hard3`` writes the annotation files as
+    ``make_dataset`` with its defaults (1-3 persons an image) does, with
+    the hard recipe's seeds."""
+    tiny = dict(spm_ref.RECIPES)
+    tiny["hard3"] = (spm_ref.RECIPES["hard3"][0], TINY) + \
+        spm_ref.RECIPES["hard3"][2:]
+    root = str(tmp_path / "recipe")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(spm_ref, "RECIPES", tiny)
+        spm_ref.main(["corpus", root, "--recipe", "hard3", "--fixture",
+                      FIXTURE])
+    for split, (n, seed, _) in TINY.items():
+        direct = make_dataset(str(tmp_path / "direct"), split, n, seed=seed)
+        path = os.path.join(root, "annotations", os.path.basename(direct))
+        with open(path, "rb") as a, open(direct, "rb") as b:
+            assert a.read() == b.read()
+        with open(path) as f:
+            db = json.load(f)
+        per_image = [sum(a["image_id"] == im["id"] for a in db["annotations"])
+                     for im in db["images"]]
+        assert min(per_image) >= 1 and max(per_image) <= 3
+
+
+def test_hard3_config_copy_reads_its_own_root(tmp_path):
+    """``config --recipe hard3``: the hard YAML with ``epochs``, the three
+    data paths (``./data/spm_hard3``) and ``save_dir``
+    (``./saved/spm_hard3``) changed, every other key as JAX reads the
+    YAML."""
+    out = str(tmp_path / "hard3.yaml")
+    spm_ref.main(["config", out, "--recipe", "hard3", "--epochs", "9",
+                  "--src", YAML])
+    ours, theirs = config.get_configs(out), jax_config.get_configs(YAML)
+    changed = {"epochs": 9, "img_dir": "./data/spm_hard3",
+               "train_path": "./data/spm_hard3/annotations/"
+                             "person_keypoints_train2017.json",
+               "val_path": "./data/spm_hard3/annotations/"
+                           "person_keypoints_val2017.json",
+               "save_dir": "./saved/spm_hard3"}
+    assert {k: ours[k] for k in changed} == changed
+    assert {k: v for k, v in ours.items() if k not in changed} == \
+        {k: v for k, v in theirs.items() if k not in changed}
 
 
 @pytest.mark.parametrize("split", sorted(TINY))
@@ -184,6 +234,31 @@ def test_script_hard_arm_config_differs_in_epochs_and_last_only(tmp_path):
     assert len(texts) == 1
     assert _lines_apart(texts[0], YAML) == (
         ["epochs: 7", "save_last_every_n_epochs: 25"], ["epochs: 250"])
+
+
+def test_script_writes_each_hard_seed_and_corpus_into_its_config(tmp_path):
+    """``ARMS=spm_hard SPM_SEEDS="3 4" HARD_RECIPES="hard hard3"``: one
+    training config a corpus and seed, each the hard YAML with ``epochs``,
+    ``save_last_every_n_epochs: 25``, ``seed: N`` and its own ``save_dir``
+    (``./saved/spm_<recipe>_s<N>``); the hard3 copies read
+    ``./data/spm_hard3``."""
+    texts = _run_script(tmp_path, {"ARMS": "spm_hard", "SPM_SEEDS": "3 4",
+                                   "HARD_RECIPES": "hard hard3",
+                                   "HARD_EPOCHS": "7"})
+    assert len(texts) == 4
+    paths = ["train_path", "val_path", "img_dir"]
+    src = dict(ln.split(" : ", 1) for ln in open(YAML).read().splitlines()
+               if ln.split(" : ", 1)[0] in paths)
+    for (recipe, seed), text in zip([("hard", 3), ("hard", 4), ("hard3", 3),
+                                     ("hard3", 4)], texts):
+        moved = [f"{k} : {src[k].replace('spm_hard', 'spm_hard3')}"
+                 for k in paths] if recipe == "hard3" else []
+        assert _lines_apart(text, YAML) == (
+            ["epochs: 7"] + moved +
+            [f"save_dir : './saved/spm_{recipe}_s{seed}'", f"seed: {seed}",
+             "save_last_every_n_epochs: 25"],
+            ["epochs: 250"] + ([f"{k} : {src[k]}" for k in paths]
+                               if moved else []) + ["save_dir : './saved'"])
 
 
 # --------------------------------------------------------------------------

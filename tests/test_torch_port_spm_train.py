@@ -40,6 +40,7 @@ from pytorch_pose_estimation_tpu_torch.train import (Trainer,
                                                      make_spm_eval_step,
                                                      make_spm_steps, validate)
 
+import _torch_update_gap as G
 from synth_fixture import COCO_KP_NAMES, make_dataset
 from test_torch_port_augment import jax_draws, jax_spm_draws
 from test_torch_port_models import calibrated_jax_variables
@@ -120,11 +121,11 @@ def test_spm_train_step_matches_jax(variables, geometric, monkeypatch):
     shifted by 3 updates (its first update has lr 0).
 
     The loss to 2e-6 relative and the BN statistics to 1e-4, as for SBP
-    (1e-6 there).  Each parameter's update to 0.1 of its norm, not SBP's
-    2e-2: SPM's update at init is worse conditioned (ROADMAP Queue 3).
-    For scale the test also runs the port's step with every weight moved
-    by about one ulp (x (1 + 1.2e-7 N(0, 1))); the gaps are printed (run
-    with ``-s``).  A wrong gradient would be off by far more."""
+    (1e-6 there).  Each parameter's update within the one-ulp yardstick of
+    tests/_torch_update_gap.py (the port's own step with every weight
+    moved by about one ulp) and within 0.1 of its norm, not SBP's 2e-2:
+    SPM's update at init is worse conditioned (ROADMAP Queue 3).  The gaps
+    are printed (run with ``-s``)."""
     augment = {"clahe_prob": 0.5, "geometric": geometric}
     batch = _batch(1)
     key = jax.random.PRNGKey(11)
@@ -143,57 +144,36 @@ def test_spm_train_step_matches_jax(variables, geometric, monkeypatch):
         state, want = jax_step(state, {k: jnp.asarray(v)
                                        for k, v in batch.items()}, key)
 
-    port = _port(variables)
-    start = {k: v.clone() for k, v in port.state_dict().items()}
     port_yolo = optim.yolo_lr(1e-3, 2, [100], [0.1])
-    opt = optim.get_optimizer("sgd", list(port.parameters()),
-                              schedule=lambda c: port_yolo(c + 3), **SGD)
-    step, _ = make_spm_steps(port, opt, IN, OUT, K, SIGMA, CONF,
-                             augment=augment)
     if geometric:  # the JAX step's augment_batch arguments
         draws = jax_draws(key, 2, HW, rotate_limit=30.0,
                           scale_range=(0.6, 1.0), ratio_range=(0.75, 1.33),
                           clahe_prob=0.5)
     else:
         draws = jax_spm_draws(key, 2, clahe_prob=0.5)
-    got = step({k: torch.from_numpy(v) for k, v in batch.items()},
-               draws=draws)
-    assert got.dim() == 0 and not got.requires_grad
-    np.testing.assert_allclose(float(got), float(want), rtol=2e-6)
 
+    def port_step(start):
+        port = _port(variables)
+        port.load_state_dict(start)
+        opt = optim.get_optimizer("sgd", list(port.parameters()),
+                                  schedule=lambda c: port_yolo(c + 3), **SGD)
+        step, _ = make_spm_steps(port, opt, IN, OUT, K, SIGMA, CONF,
+                                 augment=augment)
+        loss = step({k: torch.from_numpy(v) for k, v in batch.items()},
+                    draws=draws)
+        assert loss.dim() == 0 and not loss.requires_grad
+        return float(loss), port.state_dict()
+
+    start = from_jax_variables(variables, "spm")
+    got, sd = port_step(start)
+    np.testing.assert_allclose(got, float(want), rtol=2e-6)
     jax_sd = from_jax_variables({"params": _np_tree(state.params),
                                  "batch_stats": _np_tree(state.batch_stats)},
                                 "spm")
-    sd = port.state_dict()
-    names = [name for name, _ in port.named_parameters()]
-
-    def gaps(new, ref):
-        return np.asarray([float((new[n] - ref[n]).norm()
-                                 / (ref[n] - start[n]).norm())
-                           for n in names])
-
-    jax_gaps = gaps(sd, jax_sd)
-    assert jax_gaps.max() <= 0.1, names[int(jax_gaps.argmax())]
-    for k in _bn_keys(sd):
-        gap = float((sd[k] - jax_sd[k]).abs().max() / jax_sd[k].abs().max())
-        assert gap <= 1e-4, (k, gap)
-
-    noisy = _port(variables)
-    with torch.no_grad():
-        noise = torch.Generator().manual_seed(5)
-        for p in noisy.parameters():
-            p.mul_(1 + 1.2e-7 * torch.randn(p.shape, generator=noise))
-    opt = optim.get_optimizer("sgd", list(noisy.parameters()),
-                              schedule=lambda c: port_yolo(c + 3), **SGD)
-    step, _ = make_spm_steps(noisy, opt, IN, OUT, K, SIGMA, CONF,
-                             augment=augment)
-    step({k: torch.from_numpy(v) for k, v in batch.items()}, draws=draws)
-    ulp = gaps(noisy.state_dict(), sd)
-    print(f"spm train step, geometric={geometric}: loss {float(got):.7g} "
-          f"port, {float(want):.7g} JAX; update gaps to JAX median "
-          f"{np.median(jax_gaps):.3g}, max {jax_gaps.max():.3g}; the port's "
-          f"own step with one ulp of weight noise: median "
-          f"{np.median(ulp):.3g}, max {ulp.max():.3g}")
+    names = [name for name, _ in _port(variables).named_parameters()]
+    ulp = G.ulp_gaps(lambda s: port_step(s)[1], start, sd, names)
+    G.assert_update_close(sd, jax_sd, start, ulp, names, bound=0.1,
+                          label=f"spm train step, geometric={geometric}")
 
 
 def test_spm_eval_step_matches_jax(variables):

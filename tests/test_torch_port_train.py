@@ -11,8 +11,9 @@ Tolerances:
   statistics summed in another order; flax takes the variance as
   E[x^2] - E[x]^2);
 * the loss 1e-6 relative;
-* the update of each parameter (new - old), 2e-2 of its norm.  Measured
-  0.3-0.8%: at this init the loss pushes every logit down, so the gradient
+* the update of each parameter (new - old) within the one-ulp yardstick of
+  tests/_torch_update_gap.py, and 2e-2 of its norm.  Measured
+  0.3-1.1%: at this init the loss pushes every logit down, so the gradient
   reaching each train-mode BN is nearly constant per channel, and the BN
   backward subtracts nearly all of it; rounding differences are amplified
   (chip_smoke.py phase 6b prints what one ulp of weight noise does to the
@@ -47,6 +48,7 @@ from pytorch_pose_estimation_tpu_torch.train import (
     load_pretrained, make_sbp_steps, restore_checkpoint,
     restore_checkpoint_flexible, save_checkpoint)
 
+import _torch_update_gap as G
 from synth_fixture import COCO_KP_NAMES, make_dataset
 from test_torch_port_augment import jax_draws
 from test_torch_port_models import calibrated_jax_variables
@@ -146,9 +148,29 @@ def _batches(n, b=2, seed=3):
             for _ in range(n)]
 
 
+def _port_steps(start: dict, batches, draws, schedule):
+    """The port's make_sbp_steps from state_dict ``start``: (losses, the
+    model, the optimizer)."""
+    port = SBP(K)
+    port.load_state_dict(start)
+    port.train()
+    opt = optim.get_optimizer("sgd", list(port.parameters()),
+                              schedule=schedule, **SGD)
+    step, _ = make_sbp_steps(port, opt, list(HW), OUT, K, SIGMA, 0.25,
+                             augment=AUGMENT)
+    losses = []
+    for batch, d in zip(batches, draws):
+        loss = step({k: torch.from_numpy(v) for k, v in batch.items()},
+                    draws=d)
+        assert loss.dim() == 0 and not loss.requires_grad
+        losses.append(float(loss))
+    return np.asarray(losses), port, opt
+
+
 def _run_both(variables, batches, keys, jax_schedule, port_schedule):
     """The JAX train_step and the port's on the same batches and draws;
-    returns (JAX losses, port losses, JAX state, port model, start sd)."""
+    returns (JAX losses, port losses, JAX state, port model, start sd,
+    the port's draws)."""
     tx = jax_optim.get_optimizer("sgd", schedule=jax_schedule, **SGD)
     model = JaxSBP(num_keypoints=K)
     state = create_train_state(model, tx, (1,) + HW + (3,))
@@ -157,25 +179,18 @@ def _run_both(variables, batches, keys, jax_schedule, port_schedule):
                           opt_state=tx.init(variables["params"]))
     jax_step, _ = jax_make_sbp_steps(model, tx, list(HW), OUT, K, SIGMA,
                                      augment=AUGMENT)
-    port = _port(variables)
-    start = {k: v.clone() for k, v in port.state_dict().items()}
-    opt = optim.get_optimizer("sgd", list(port.parameters()),
-                              schedule=port_schedule, **SGD)
-    step, _ = make_sbp_steps(port, opt, list(HW), OUT, K, SIGMA, 0.25,
-                             augment=AUGMENT)
-    want, got = [], []
+    want = []
     for batch, key in zip(batches, keys):
         with jax.default_matmul_precision("highest"):
             state, loss = jax_step(
                 state, {k: jnp.asarray(v) for k, v in batch.items()}, key)
         want.append(float(loss))
-        loss = step({k: torch.from_numpy(v) for k, v in batch.items()},
-                    draws=jax_draws(key, len(batch["image"]), HW,
-                                    **DRAW_OPTS))
-        assert loss.dim() == 0 and not loss.requires_grad
-        got.append(float(loss))
+    draws = [jax_draws(key, len(batch["image"]), HW, **DRAW_OPTS)
+             for batch, key in zip(batches, keys)]
+    start = from_jax_variables(variables)
+    got, port, opt = _port_steps(start, batches, draws, port_schedule)
     assert opt.count == int(state.step) == len(batches)
-    return np.asarray(want), np.asarray(got), state, port, start
+    return np.asarray(want), got, state, port, start, draws
 
 
 def test_train_step_matches_jax(variables):
@@ -186,19 +201,20 @@ def test_train_step_matches_jax(variables):
     has lr 0."""
     jax_yolo = jax_optim.yolo_lr(1e-3, 2, [100], [0.1])
     port_yolo = optim.yolo_lr(1e-3, 2, [100], [0.1])
-    want, got, state, port, start = _run_both(
-        variables, _batches(1), [jax.random.PRNGKey(5)],
+    batches = _batches(1)
+    want, got, state, port, start, draws = _run_both(
+        variables, batches, [jax.random.PRNGKey(5)],
         lambda c: jax_yolo(c + 3), lambda c: port_yolo(c + 3))
     np.testing.assert_allclose(got, want, rtol=1e-6)
     jax_sd = from_jax_variables({"params": _np_tree(state.params),
                                  "batch_stats": _np_tree(state.batch_stats)})
     sd = port.state_dict()
-    for name, _ in port.named_parameters():
-        jax_update = jax_sd[name] - start[name]
-        gap = float((sd[name] - start[name] - jax_update).norm()
-                    / jax_update.norm())
-        assert gap <= 2e-2, (name, gap)
-    assert _stats_gap(sd, jax_sd) <= 1e-4
+    names = [name for name, _ in port.named_parameters()]
+    ulp = G.ulp_gaps(lambda s: _port_steps(s, batches, draws,
+                                           lambda c: port_yolo(c + 3))[1]
+                     .state_dict(), start, sd, names)
+    G.assert_update_close(sd, jax_sd, start, ulp, names, bound=2e-2,
+                          label="sbp train step")
 
 
 def test_five_step_loss_trajectory_matches_jax(variables):
@@ -211,7 +227,7 @@ def test_five_step_loss_trajectory_matches_jax(variables):
     (see test_torch_port_augment.py)."""
     batches = _batches(5, seed=4)
     keys = [jax.random.PRNGKey(k) for k in (101, 110, 112, 121, 122)]
-    want, got, _, _, _ = _run_both(
+    want, got, _, _, _, _ = _run_both(
         variables, batches, keys, jax_optim.yolo_lr(1e-2, 2, [100], [0.1]),
         optim.yolo_lr(1e-2, 2, [100], [0.1]))
     np.testing.assert_allclose(got, want, rtol=5e-4)
