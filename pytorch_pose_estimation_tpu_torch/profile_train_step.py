@@ -11,13 +11,15 @@ default; bf16, sgd nesterov, device CLAHE) or the darknet19 classifier
 (``augment_geometric``, as configs/spm_synth_ref.yaml).
 
 Prints the card's name and power limit, the step time by host clock
-(synchronized, after warm-up), each part's device time by CUDA events
-(augment, targets, forward_backward, optimizer; the classifier's step has
-the last two; the mean over the steps), the augmentation's and the
-targets' own parts timed alone the same way, then a ``torch.profiler``
-trace of the same steps: the device's busy share of the window and the
-kernels with the most device time, and the same time grouped into kinds
-(convolution, matmul, elementwise, ...).
+(synchronized, after warm-up), each part's device and host time from the
+step's ``tracing`` spans (draw, augment, targets, forward, backward,
+optimizer; the classifier's step has no augment and no targets; the mean
+over the steps), the augmentation's and the targets' own parts timed
+alone by CUDA events, then a ``torch.profiler`` trace of the same steps:
+the device's busy share of the window (the union of the kernels'
+intervals, so that overlapping kernels count once) and the kernels with
+the most device time, and the same time grouped into kinds (convolution,
+matmul, elementwise, ...).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from . import optim
+from . import optim, tracing
 from .models.darknet import dropout_mask_shape
 from .ops import image
 from .ops import targets as target_ops
@@ -57,6 +59,16 @@ def _kind(name: str) -> str:
         if fragment in low:
             return kind
     return "other"
+
+
+def busy_us(intervals) -> float:
+    """The length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
 
 
 def _device_ms(fn, n=5) -> float:
@@ -176,9 +188,8 @@ def _classifier_setup(b: int, rng):
                               momentum=0.9, weight_decay=5e-4, nesterov=True)
     train_step, _ = make_classifier_steps(model, opt, 200)
 
-    def step(batch, gen, host_gen, marker=None):
-        return train_step(batch["image"], batch["label"], gen,
-                          marker=marker)
+    def step(batch, gen, host_gen):
+        return train_step(batch["image"], batch["label"], gen)
 
     def parts(batch, gen, host_gen):
         shape = dropout_mask_shape(b, 64, 64)
@@ -263,24 +274,13 @@ def main(argv=None):
     print(f"{label} train step at batch {b}: {step_ms:.2f} ms host clock "
           f"({b * 1e3 / step_ms:.0f} images/s), mean of {args.steps}")
 
-    parts = defaultdict(float)
-    for _ in range(args.steps):
-        events = [torch.cuda.Event(enable_timing=True)]
-        names = []
-        events[0].record()
-
-        def marker(name, events=events, names=names):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append(ev)
-            names.append(name)
-
-        step(batch, gen, host_gen, marker=marker)
-        torch.cuda.synchronize()
-        for i, name in enumerate(names):
-            parts[name] += events[i].elapsed_time(events[i + 1])
-    print("parts (CUDA events, mean): " + ", ".join(
-        f"{k} {v / args.steps:.2f} ms" for k, v in parts.items()))
+    with tracing.recording("cuda") as rec:
+        for _ in range(args.steps):
+            step(batch, gen, host_gen)
+    spans = rec.summary()["spans"]
+    print("parts (tracing spans, mean device / host ms): " + ", ".join(
+        f"{k.removeprefix('train.')} {v['device_ms']:.2f} / "
+        f"{v['host_ms']:.2f}" for k, v in spans.items()))
     print("parts alone (CUDA events): " + ", ".join(
         f"{k} {v:.2f} ms" for k, v in
         parts_alone(batch, gen, host_gen).items()))
@@ -301,7 +301,8 @@ def main(argv=None):
     if not kernels:
         print("torch.profiler recorded no device events")
         return
-    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    busy_ms = busy_us((e.time_range.start, e.time_range.end)
+                      for e in kernels) / 1e3
     by_name = defaultdict(lambda: [0.0, 0])
     by_kind = defaultdict(float)
     for e in kernels:

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..parallel import mesh
+from ..tracing import count, span
 
 _MEMO_VERSION = 1
 
@@ -56,11 +57,21 @@ class DeviceDataCache:
 
     arrays: dict of [N, ...] host numpy arrays (the same N).  The leading
     axis is permuted once by ``seed`` and padded by wraparound to a
-    multiple of ``world``; the rank uploads its contiguous shard."""
+    multiple of ``world``; the rank uploads its contiguous shard.
+
+    Under a ``tracing.recording()`` the construction is the span
+    ``setup.cache``, over ``setup.cache.order`` (the permutation, and each
+    array's shard copied in that order on the host) and
+    ``setup.cache.upload`` (each copy to the device), with the counter
+    ``setup.cache.bytes``; a batch's gather is ``feed.gather``."""
 
     def __init__(self, arrays: Dict[str, np.ndarray], batch_size: int,
                  seed: int = 0, device="cuda", rank: int = 0,
                  world: int = 1):
+        with span("setup.cache", sync=True):
+            self._build(arrays, batch_size, seed, device, rank, world)
+
+    def _build(self, arrays, batch_size, seed, device, rank, world) -> None:
         names = sorted(arrays)
         n = len(arrays[names[0]])
         if n == 0:
@@ -73,11 +84,12 @@ class DeviceDataCache:
         self._names = names
         # one global permutation, so that the order does not follow the
         # annotation file's
-        rng = np.random.RandomState((seed * 2654435761 + 97) % (2 ** 32))
-        order = rng.permutation(n)
-        n_pad = -(-n // self.world) * self.world
-        if n_pad > n:
-            order = np.concatenate([order, order[:n_pad - n]])
+        with span("setup.cache.order"):
+            rng = np.random.RandomState((seed * 2654435761 + 97) % (2 ** 32))
+            order = rng.permutation(n)
+            n_pad = -(-n // self.world) * self.world
+            if n_pad > n:
+                order = np.concatenate([order, order[:n_pad - n]])
         self.n_total = n_pad
         self.n_local = n_pad // self.world
         if self.per_device_batch > self.n_local:
@@ -86,8 +98,15 @@ class DeviceDataCache:
                              f"shard")
         self.steps_per_epoch = self.n_local // self.per_device_batch
         shard = order[self.rank * self.n_local:(self.rank + 1) * self.n_local]
-        self._data = {k: torch.from_numpy(np.ascontiguousarray(
-            arrays[k][shard])).to(self.device) for k in names}
+        self._data = {}
+        for k in names:  # one host copy alive at a time
+            with span("setup.cache.order"):
+                host = np.ascontiguousarray(arrays[k][shard])
+            with span("setup.cache.upload", sync=True):
+                self._data[k] = torch.from_numpy(host).to(self.device)
+            del host
+            count("setup.cache.bytes",
+                  self._data[k].numel() * self._data[k].element_size())
 
     def nbytes(self) -> int:
         """The bytes this rank holds on its device."""
@@ -117,8 +136,10 @@ class DeviceDataCache:
                                          (self.rank + 1) * pb]
         idx = torch.from_numpy(cols.astype(np.int64)).to(self.device)
         for rows in idx:
-            yield {k: torch.index_select(self._data[k], 0, rows)
-                   for k in self._names}
+            with span("feed.gather"):
+                batch = {k: torch.index_select(self._data[k], 0, rows)
+                         for k in self._names}
+            yield batch
 
 
 def _disk_cache_dir(data_module) -> str | None:

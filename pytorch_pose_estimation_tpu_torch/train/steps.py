@@ -38,19 +38,23 @@ from ..ops.image import (augment_batch_core, normalize_batch, replica_draws,
 from ..ops.targets import sbp_heatmaps_batch, spm_target
 from ..optim import ChainOptimizer
 from ..parallel import mesh
+from ..tracing import span
 
 
 def _backward_and_update(model: nn.Module, optimizer: ChainOptimizer,
                          loss: torch.Tensor, mark: Callable) -> torch.Tensor:
     """Backward, the ranks' gradient all-reduce (none with one rank) and
     the update; returns the (global) loss, detached."""
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    with span("train.backward"):
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
     mark("forward_backward")
     if mesh.world_size() > 1:
-        loss, = mesh.average_gradients(model.parameters(), loss)
+        with span("train.all_reduce"):
+            loss, = mesh.average_gradients(model.parameters(), loss)
         mark("all_reduce")
-    optimizer.step()
+    with span("train.optimizer"):
+        optimizer.step()
     mark("optimizer")
     return loss.detach()
 
@@ -115,6 +119,10 @@ def make_sbp_steps(model: nn.Module, optimizer: ChainOptimizer,
     ``sample_augment``), or given as ``draws``.  ``marker(name)``, if
     given, is called after each part: "augment", "targets",
     "forward_backward", ("all_reduce" under N ranks), "optimizer".
+    Under a ``tracing.recording()`` the step is the span ``train.step``
+    over ``train.draw``, ``train.augment``, ``train.targets``,
+    ``train.forward``, ``train.backward``, (``train.all_reduce``) and
+    ``train.optimizer``; each marker call follows its span's end.
 
     ``augment`` overrides the JAX package's defaults: rotate_limit 40,
     scale_range (0.4, 1), ratio_range (0.4, 1.6), color_jitter
@@ -139,21 +147,29 @@ def make_sbp_steps(model: nn.Module, optimizer: ChainOptimizer,
                    host_gen: Optional[torch.Generator] = None,
                    draws=None, marker: Optional[Callable] = None):
         mark = marker or (lambda name: None)
-        model.train()
-        with torch.no_grad():
-            if draws is None:
-                draws = sample_augment(gen, _global_batch(batch), out_hw,
-                                       host_gen=host_gen, **options)
-            draws = replica_draws(draws, mesh.rank(), mesh.world_size())
-            images, joints, vis = augment_batch_core(
-                batch["image"], batch["joints"].to(torch.float32),
-                batch["joints_vis"].to(torch.float32), draws, out_hw, dtype)
-            mark("augment")
-            target = _sbp_targets(joints, vis, ratio, output_size,
-                                  num_keypoints, sigma)
-            mark("targets")
-        loss = sbp_loss(model(images), target)
-        return _backward_and_update(model, optimizer, loss, mark)
+        with span("train.step"):
+            model.train()
+            with torch.no_grad():
+                with span("train.draw"):
+                    if draws is None:
+                        draws = sample_augment(gen, _global_batch(batch),
+                                               out_hw, host_gen=host_gen,
+                                               **options)
+                    draws = replica_draws(draws, mesh.rank(),
+                                          mesh.world_size())
+                with span("train.augment"):
+                    images, joints, vis = augment_batch_core(
+                        batch["image"], batch["joints"].to(torch.float32),
+                        batch["joints_vis"].to(torch.float32), draws,
+                        out_hw, dtype)
+                mark("augment")
+                with span("train.targets"):
+                    target = _sbp_targets(joints, vis, ratio, output_size,
+                                          num_keypoints, sigma)
+                mark("targets")
+            with span("train.forward"):
+                loss = sbp_loss(model(images), target)
+            return _backward_and_update(model, optimizer, loss, mark)
 
     eval_step = make_sbp_eval_step(model, input_size, output_size,
                                    num_keypoints, sigma,
@@ -205,9 +221,10 @@ def make_spm_steps(model: nn.Module, optimizer: ChainOptimizer,
                    input_size: int, output_size: int, num_keypoints: int,
                    sigma: float, decode_conf_threshold: float,
                    augment: Optional[dict] = None, max_persons: int = 30):
-    """Returns (train_step, eval_step) with the SBP steps' signatures;
-    ``batch`` holds image uint8 [B,S,S,3], joints [B,P,K,2] and centers
-    [B,P,1,2] (input px, (0, 0) for an absent point).
+    """Returns (train_step, eval_step) with the SBP steps' signatures,
+    markers and spans; ``batch`` holds image uint8 [B,S,S,3], joints
+    [B,P,K,2] and centers [B,P,1,2] (input px, (0, 0) for an absent
+    point).
 
     By default the train step's augmentation is photometric, as the
     reference's SPM transform list (rotate and crop commented out,
@@ -259,27 +276,35 @@ def make_spm_steps(model: nn.Module, optimizer: ChainOptimizer,
                    host_gen: Optional[torch.Generator] = None,
                    draws=None, marker: Optional[Callable] = None):
         mark = marker or (lambda name: None)
-        model.train()
-        with torch.no_grad():
-            b = _global_batch(batch)
-            if draws is None and geometric:
-                draws = sample_augment(gen, b, (s, s), host_gen=host_gen,
-                                       **options)
-            elif draws is None:
-                draws = sample_photometric(gen, b, host_gen=host_gen,
-                                           **options)
-            draws = replica_draws(draws, mesh.rank(), mesh.world_size())
-            if geometric:
-                images, joints, centers = augment_geometric(batch, draws)
-            else:
-                images = spm_photometric_core(batch["image"], draws, dtype)
-                joints, centers = batch["joints"], batch["centers"]
-            mark("augment")
-            target = _spm_targets(joints, centers, ratio, output_size,
-                                  num_keypoints, sigma)
-            mark("targets")
-        loss = spm_loss(model(images), target)
-        return _backward_and_update(model, optimizer, loss, mark)
+        with span("train.step"):
+            model.train()
+            with torch.no_grad():
+                with span("train.draw"):
+                    b = _global_batch(batch)
+                    if draws is None and geometric:
+                        draws = sample_augment(gen, b, (s, s),
+                                               host_gen=host_gen, **options)
+                    elif draws is None:
+                        draws = sample_photometric(gen, b, host_gen=host_gen,
+                                                   **options)
+                    draws = replica_draws(draws, mesh.rank(),
+                                          mesh.world_size())
+                with span("train.augment"):
+                    if geometric:
+                        images, joints, centers = augment_geometric(batch,
+                                                                    draws)
+                    else:
+                        images = spm_photometric_core(batch["image"], draws,
+                                                      dtype)
+                        joints, centers = batch["joints"], batch["centers"]
+                mark("augment")
+                with span("train.targets"):
+                    target = _spm_targets(joints, centers, ratio,
+                                          output_size, num_keypoints, sigma)
+                mark("targets")
+            with span("train.forward"):
+                loss = spm_loss(model(images), target)
+            return _backward_and_update(model, optimizer, loss, mark)
 
     eval_step = make_spm_eval_step(model, input_size, output_size,
                                    num_keypoints, sigma,

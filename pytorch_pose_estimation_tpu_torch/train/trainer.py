@@ -72,6 +72,7 @@ from ..ops.decode import decode_sbp_fast
 from ..ops.image import normalize_batch
 from ..optim import build_optimizer_from_cfg
 from ..parallel import mesh
+from ..tracing import recording, span
 from .checkpoint import (CheckpointManager, load_backbone, load_pretrained,
                          next_version_dir, restore_checkpoint)
 from .device_cache import build_device_cache
@@ -313,7 +314,8 @@ class Trainer:
             data_module.process_index = self.rank
             data_module.process_count = self.world
 
-        model = build_model(cfg, kind).to(self.device).train()
+        with span("setup.model", sync=True):
+            model = build_model(cfg, kind).to(self.device).train()
         optimizer, schedule = build_optimizer_from_cfg(cfg, model)
         self.state = TrainState(model, optimizer, schedule)
 
@@ -384,10 +386,12 @@ class Trainer:
         self.global_step = 0
         self.log_every = int(cfg.get("log_every_n_steps", 50))
         # profiling window [start_step, end_step): a torch.profiler trace
-        # of those steps into the run's version dir
+        # of those steps, with the program's spans, into the run's version
+        # dir
         prof = (cfg.get("trainer_options") or {}).get("profile_steps")
         self.profile_steps = tuple(prof) if prof else None
         self._profiler = None
+        self._recording = None
 
     @property
     def model(self) -> nn.Module:
@@ -449,7 +453,8 @@ class Trainer:
 
     def _profile(self):
         """Start or stop the torch.profiler trace at the window's edges
-        (rank 0's steps)."""
+        (rank 0's steps); a ``tracing`` recording is open inside it, so
+        that the trace holds the ``pose.*`` spans."""
         if not self.profile_steps or not self.main:
             return
         start, stop = self.profile_steps
@@ -459,7 +464,10 @@ class Trainer:
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             self._profiler = torch.profiler.profile(activities=activities)
             self._profiler.start()
+            self._recording = recording(self.device).start()
         elif self._profiler is not None and self.global_step >= stop:
+            self._recording.stop()
+            self._recording = None
             self._profiler.stop()
             out_dir = self.version_dir or self.cfg.get("save_dir", "./saved")
             os.makedirs(out_dir, exist_ok=True)

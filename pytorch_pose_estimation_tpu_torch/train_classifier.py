@@ -42,6 +42,7 @@ from .models.darknet import (darknet19, dropout_mask_shape,
                              sample_dropout_mask)
 from .ops.image import normalize_batch
 from .optim import build_optimizer_from_cfg
+from .tracing import span
 from .train import (CheckpointManager, TrainState, apply_precision_config,
                     next_version_dir, resolve_device, to_device)
 
@@ -66,7 +67,9 @@ def make_classifier_steps(model: nn.Module, optimizer, num_classes: int
     dropout keep mask of the global batch is drawn from ``gen`` unless
     given, and the rank keeps its rows.  ``marker(name)``, if given, is
     called after "forward_backward", ("all_reduce" under N ranks) and
-    "optimizer".
+    "optimizer".  Under a ``tracing.recording()`` the step is the span
+    ``train.step`` over ``train.draw`` (the mask), ``train.forward``,
+    ``train.backward``, (``train.all_reduce``) and ``train.optimizer``.
 
     ``eval_step(images, labels) -> the number of top-1 hits`` (a 0-dim
     tensor), in eval mode; a label -1 (a padded row) is never a hit."""
@@ -76,27 +79,34 @@ def make_classifier_steps(model: nn.Module, optimizer, num_classes: int
                    mask: Optional[torch.Tensor] = None,
                    marker: Optional[Callable] = None):
         mark = marker or (lambda name: None)
-        model.train()
-        x = normalize_batch(images)
-        world = parallel.world_size()
-        if mask is None:
-            b, _, h, w = x.shape
-            mask = sample_dropout_mask(
-                gen, dropout_mask_shape(b * world, h, w), device=x.device)
-        logits = model(x, parallel.local_rows(mask))
-        loss = classifier_loss(logits, labels, num_classes)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        mark("forward_backward")
-        with torch.no_grad():
-            acc = (logits.argmax(-1) == labels).to(torch.float32).mean()
-        if world > 1:
-            loss, acc = parallel.average_gradients(model.parameters(), loss,
-                                                   acc)
-            mark("all_reduce")
-        optimizer.step()
-        mark("optimizer")
-        return loss.detach(), acc
+        with span("train.step"):
+            model.train()
+            x = normalize_batch(images)
+            world = parallel.world_size()
+            if mask is None:
+                with span("train.draw"):
+                    b, _, h, w = x.shape
+                    mask = sample_dropout_mask(
+                        gen, dropout_mask_shape(b * world, h, w),
+                        device=x.device)
+            with span("train.forward"):
+                logits = model(x, parallel.local_rows(mask))
+                loss = classifier_loss(logits, labels, num_classes)
+            with span("train.backward"):
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            mark("forward_backward")
+            with torch.no_grad():
+                acc = (logits.argmax(-1) == labels).to(torch.float32).mean()
+            if world > 1:
+                with span("train.all_reduce"):
+                    loss, acc = parallel.average_gradients(
+                        model.parameters(), loss, acc)
+                mark("all_reduce")
+            with span("train.optimizer"):
+                optimizer.step()
+            mark("optimizer")
+            return loss.detach(), acc
 
     @torch.inference_mode()
     def eval_step(images: torch.Tensor, labels: torch.Tensor):

@@ -446,7 +446,8 @@ def test_trainer_fit_and_resume_on_synthetic_data(synth, capsys):
 def test_train_sbp_cli_trains_on_the_cpu(synth, tmp_path):
     """``python -m pytorch_pose_estimation_tpu_torch.train_sbp --cfg ...
     --device cpu``: the YAML is read (1e-3 as a float), the model trains
-    one epoch, writes 'last' and the torch.profiler trace of step 0."""
+    one epoch, writes 'last' and the torch.profiler trace of step 0, with
+    the step's ``tracing`` spans in it."""
     from pytorch_pose_estimation_tpu_torch import train_sbp
 
     cfg = _cfg(synth, save_dir=str(tmp_path / "saved"),
@@ -468,3 +469,7 @@ def test_train_sbp_cli_trains_on_the_cpu(synth, tmp_path):
         ["last", "last.meta.json"]
     trace = json.loads((version / "trace_steps_0-1.json").read_text())
     assert trace["traceEvents"]
+    ranges = {e["name"] for e in trace["traceEvents"]
+              if e.get("cat") == "user_annotation"}
+    assert {"pose.train.step", "pose.train.forward",
+            "pose.train.backward"} <= ranges
