@@ -18,22 +18,31 @@ non-zero, printing no result:
    kernel's time and share of its HBM bound at B=1024, where each tensor
    is 4x the L2; K2 also timed with the L2 flushed before each call; then
    both kernels at the PIS shape (B=256, K=11, 64x48): K1's error 0, K2's
-   x and y identical, their times;
+   x and y identical, their times; then K3 (train-mode BN + ReLU, bf16 in
+   and out) at each of the 42 BN shapes of the benchmark's cells (SBP at
+   batch 256, SPM at 32): y and dx within one bf16 ulp of the plain
+   version's, the forward's and the backward's time against their byte
+   bounds, the plain version's time and the library yardstick's
+   (torch's fp32 batch_norm and ReLU around the casts, forward and
+   backward), and the sums over a step's 21 layers;
 4. serve: full-width SBP (darknet19, 256x192 input, 36,606,368 parameters,
    seeded weights, bf16) through ``load_sbp_predictor``: batch 1, batch 1,
    batch 64, uint8; plus one fp32 forward on the card against the CPU;
 5. eval: ``validate`` (eval step: K1 targets, forward, loss, K2 decode, then
    the OKS metric) on a seeded batch with a COCO-format annotation file;
-   the launch counts of both kernels are set to 0 before phase 4 and read
-   after phase 5; then K1 stamps and K2 decodes the targets (GT probe),
-   which must give back trunc(joint * ratio) * 4, and their AP is printed;
+   the launch counts of the kernels are set to 0 before phase 4 and read
+   after phase 5 (K1 and K2 launched, K3 not at all); then K1 stamps and
+   K2 decodes the targets (GT probe), which must give back
+   trunc(joint * ratio) * 4, and their AP is printed;
 6. train, at the same full width (bf16, batch 256, sgd nesterov under
    yolo_lr, device CLAHE, the port's host loader over seeded crops in
    memory): a. ``Trainer(cfg, dm).fit()`` for one epoch of 20 steps, its
    validation and checkpoints, then a new ``Trainer`` resumed from ``last``
    for a second epoch, with the launch counts set to 0 before and read
-   after (K1 once per train and per eval step, K2 once per eval step); the
-   train step's time by host clock and one step split by CUDA events;
+   after (K1 once per train and per eval step, K2 once per eval step, K3
+   forward and backward 21 times per train step, one a BN layer, and
+   never in the validations); the train step's time by host clock and
+   one step split by CUDA events;
    b. one fp32 train step (TF32 off) on the card against the same step on
    the CPU, same weights and draws, batch 2, beside the CPU's step with
    every weight moved by one ulp; c. 30 steps on one batch without
@@ -42,7 +51,8 @@ non-zero, printing no result:
    128x128 maps, 1 + 2K = 35 channels, 36,615,584 parameters, sigma 1,
    30 persons, batch 32, bf16; seeded weights and multi-person images made
    in memory; CLAHE on the device), with the launch counts set to 0 before
-   and read after: no kernel may launch in it.  a. serve:
+   and read after: neither K1 nor K2 may launch in it, K3 not in a-c and
+   21 times forward and backward per train step of d's fits.  a. serve:
    ``load_for_inference`` + ``decode_spm_batch``, batch 1, 1 and 32, and
    the fp32 forward on the card against the CPU; b. eval: ``validate``
    (kind spm) on 32 seeded images with a COCO-format file, then the eval
@@ -62,7 +72,8 @@ non-zero, printing no result:
    (the backbone must be the donor's, the rest the PIS model's own init);
    b. ``Trainer(kind="pis").fit()`` for 10 steps with validation through
    ``SBPmAPPIS`` (51 numbers per result) and a resumed epoch, K1 once per
-   train and eval step and K2 once per eval step, then the step's time and
+   train and eval step, K2 once per eval step and K3 21 times forward and
+   backward per train step, then the step's time and
    split; c. the predictor at batch 1, 1 and 64 (joints [B, 11, 3], K2 once
    a call); d. the GT probe at K=11; e. both behaviour harness functions
    on 64 labelled samples each, whose confusion counts from K2's joints
@@ -71,12 +82,13 @@ non-zero, printing no result:
    200 classes, batch 256, bf16, sgd nesterov lr 0.1 under
    cosine_annealing_warm_restarts; seeded images and labels in memory):
    ``train_classifier.train`` for 10 steps with validation and
-   checkpoints; the step's time, split, images/s and peak memory; one
-   fp32 step on the card against the CPU with the same weights and
-   dropout mask; 30 steps on a fixed batch with dropout (the loss must
-   fall); an SBP ``Trainer`` whose ``backbone_pretrained`` is the
-   classifier's ``last`` (all 18 convs and their BN equal); no kernel may
-   launch in it;
+   checkpoints, K3 19 times forward and backward per train step (its 19
+   BN layers) and never in the validation; the step's time, split,
+   images/s and peak memory; one fp32 step on the card against the CPU
+   with the same weights and dropout mask; 30 steps on a fixed batch with
+   dropout (the loss must fall); an SBP ``Trainer`` whose
+   ``backbone_pretrained`` is the classifier's ``last`` (all 18 convs and
+   their BN equal); neither K1 nor K2 may launch in it;
 10. the device cache and the native loader, from JPEG files on disk
    (``tests/synth_fixture.py``, which needs cv2): a. build the port's
    native loader with g++ and say whether it built (the first line of
@@ -93,7 +105,7 @@ non-zero, printing no result:
    decoders' pixels on one val batch (mean difference under 2 levels); e.
    SPM with ``cache_device`` at
    512x512, batch 32, 64 images, one epoch: the memo holds image, joints
-   and centers, and no kernel launches;
+   and centers, and no launch of K1 or K2;
 11. data parallelism (``parallel``) on the one card: a. world 1 under a
    real NCCL group (torchrun's environment set here): two steps of
    ``Trainer.fit`` give losses and parameters bitwise equal to the same
@@ -189,9 +201,11 @@ non-zero, printing no result:
    just before and read just after (K2 twice).
 
 The last three lines of standard output: the card's name and power limit,
-one JSON object describing each kernel (launches summed over phases 4-10
-and 12, each rank's launches in 11c, and phases 12's, 13's, 14's, 15's
-and 16's alone),
+one JSON object describing each kernel (K1 and K2: launches summed over
+phases 4-10 and 12, each rank's launches in 11c, and phases 12's, 13's,
+14's, 15's and 16's alone; K3: its forward and backward launches in the
+fits of phases 6-9 and in phases 4-5 and 7a-c, each with its train
+steps, and per cell its times summed over a step's 21 layers),
 and ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
 ...}}``.  The configs are written inline with the values of
 configs/sbp_coco.yaml, spm_coco.yaml, sbp_pis.yaml,
@@ -569,6 +583,148 @@ def phase_k11(gen):
     return k1_err, k2_err, rows
 
 
+# K3 (csrc/bn_act.cu): bytes an element, the bf16 input read twice and the
+# output written (forward); dy and x read twice and dx written (backward);
+# fp32 operations an element, counted high (the statistics, the apply)
+K3_FWD_BYTES, K3_BWD_BYTES = 6, 10
+K3_FWD_OPS, K3_BWD_OPS = 8, 14
+BN_ACT_COMMON = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "_bn_act_common.py")
+
+
+def _load_path(name, path):
+    """The module at ``path``, loaded by its path as ``name``."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# K3's two wrappers; their launches are counted apart from K1's and K2's
+# (``kernels.KERNELS``), set to 0 with them by ``_zero_launches``, and
+# checked per phase against the BN layers of the model the phase trains
+K3 = (kernels.bn_act_forward_cuda, kernels.bn_act_backward_cuda)
+BN_LAYERS = 21  # SBP, PIS and SPM: 18 trunk blocks and 3 deconvolutions
+CLS_BN_LAYERS = 19  # the classifier: 18 trunk blocks and its last conv
+# per phase, K3's forward and backward launches and the train steps they
+# came from (filled by the phases; the JSON line's ``bn_act_cuda`` row)
+K3_LAUNCHES = {}
+
+
+def _zero_launches():
+    """K1's, K2's and K3's launch counts to 0."""
+    for kern in kernels.KERNELS + K3:
+        kern.launches = 0
+
+
+def _k3_counts():
+    return {"forward": K3[0].launches, "backward": K3[1].launches}
+
+
+def check_k3(phase, train_steps, layers=BN_LAYERS):
+    """K3 launched once forward and once backward per BN layer per train
+    step since the counts were last set to 0, and never outside a train
+    step; keeps the counts under ``phase``."""
+    got = _k3_counts()
+    want = layers * train_steps
+    K3_LAUNCHES[phase] = dict(got, train_steps=train_steps)
+    check(got == {"forward": want, "backward": want},
+          f"{phase}: K3 launched {got}, want {want} each ({layers} BN "
+          f"layers x {train_steps} train steps)")
+
+
+def _library_bn_relu(x, w, b, rm, rv):
+    """The library yardstick K3 replaced, never called by the port:
+    torch's fp32 batch_norm and ReLU around the casts."""
+    return torch.relu(torch.nn.functional.batch_norm(
+        x.float(), rm, rv, w, b, True, 0.1, 1e-5)).to(torch.bfloat16)
+
+
+def phase_k3():
+    """K3 at each of the 42 BN shapes of the benchmark's cells (SBP at
+    batch 256, SPM at 32, ReLU): y and dx against the plain version (at
+    most one bf16 ulp apart, beside what fp32 ordering and the ReLU masks
+    of a bf16 value at the threshold allow: tests/_bn_act_common.py's
+    ``reference``); the forward's and the backward's device
+    time against their byte bounds; the plain version's forward and
+    backward; the library yardstick (torch's fp32 batch_norm and ReLU
+    around the casts, its forward and its backward by autograd).  Returns
+    per cell the summed times and bounds, and the largest shares of y's
+    and dx's elements that are not bit-equal to the plain version's."""
+    from pytorch_pose_estimation_tpu_torch.models.layers import (
+        bn_act_backward_plain, bn_act_forward_plain)
+    common = _load_path("_bn_act_common", BN_ACT_COMMON)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator("cuda").manual_seed(3)
+    out, worst = {}, [0.0, 0.0]
+    for cell in common.CELLS:
+        tot = dict.fromkeys(("fwd", "bwd", "fwd_bound", "bwd_bound",
+                             "plain", "lib_fwd", "lib_bwd"), 0.0)
+        for i, shape in enumerate(common.cell_shapes(cell)):
+            n, c = shape[0], shape[1]
+            x = (torch.randn(shape, device="cuda", generator=gen) * 2
+                 + 0.5).to(torch.bfloat16)
+            dy = torch.randn(shape, device="cuda",
+                             generator=gen).to(torch.bfloat16)
+            w = torch.rand(c, device="cuda", generator=gen) + 0.5
+            b = torch.randn(c, device="cuda", generator=gen) * 0.3
+            rm, rv = torch.zeros(c, device="cuda"), torch.ones(c,
+                                                               device="cuda")
+            nbt = torch.zeros((), dtype=torch.int64, device="cuda")
+            args = (w, b, rm, rv, nbt, 0.1, 1e-5, True)
+            y, stats = kernels.bn_act_forward_cuda(x, *args)
+            dx = kernels.bn_act_backward_cuda(dy, x, stats, True)[0]
+            y_p, stats_p = bn_act_forward_plain(x, *args)
+            dx_p = bn_act_backward_plain(dy, x, stats_p, True)[0]
+            ref = common.reference(x, dy, w, b, 1e-5, True)
+            gaps = (common.bf16_excess(y, y_p, ref["slack_y"]),
+                    common.bf16_excess(dx, dx_p, ref["slack_dx"]))
+            del ref
+            check(gaps[0][0] == 0 and gaps[1][0] == 0,
+                  f"K3 disagrees with its plain version at {cell} {shape}: "
+                  f"{gaps}")
+            worst = [max(worst[0], 1 - gaps[0][1]),
+                     max(worst[1], 1 - gaps[1][1])]
+            ms_f = device_ms(lambda: kernels.bn_act_forward_cuda(x, *args),
+                             iters=20)
+            ms_b = device_ms(
+                lambda: kernels.bn_act_backward_cuda(dy, x, stats, True),
+                iters=20)
+            plain = device_ms(lambda: bn_act_backward_plain(
+                dy, x, bn_act_forward_plain(x, *args)[1], True), iters=5)
+            xr = x.detach().requires_grad_()
+            wr, br = w.clone().requires_grad_(), b.clone().requires_grad_()
+            lib_f = device_ms(lambda: _library_bn_relu(xr, wr, br, rm, rv),
+                              iters=5)
+            y_lib = _library_bn_relu(xr, wr, br, rm, rv)
+            lib_b = device_ms(lambda: torch.autograd.grad(
+                y_lib, (xr, wr, br), dy, retain_graph=True), iters=5)
+            del y_lib
+            numel = x.numel()
+            bf, _ = bound_ms(numel * K3_FWD_BYTES, numel * K3_FWD_OPS)
+            bb, _ = bound_ms(numel * K3_BWD_BYTES, numel * K3_BWD_OPS)
+            for k, v in (("fwd", ms_f), ("bwd", ms_b), ("fwd_bound", bf),
+                         ("bwd_bound", bb), ("plain", plain),
+                         ("lib_fwd", lib_f), ("lib_bwd", lib_b)):
+                tot[k] += v
+            plan = kernels.bn_plan(n, c, shape[2] * shape[3], 1, sms)
+            print(f"K3 {cell} {i + 1:2d}/21 {list(shape)}: fwd {ms_f:.4f} ms "
+                  f"(bound {bf:.4f}, {bf / ms_f:.1%}), bwd {ms_b:.4f} ms "
+                  f"(bound {bb:.4f}, {bb / ms_b:.1%}); plain {plain:.4f}, "
+                  f"library fwd {lib_f:.4f} bwd {lib_b:.4f} ms; bit-equal "
+                  f"y {gaps[0][1]:.4%}, dx {gaps[1][1]:.4%}; plan "
+                  f"{tuple(plan)}")
+        k3 = tot["fwd"] + tot["bwd"]
+        bound = tot["fwd_bound"] + tot["bwd_bound"]
+        lib = tot["lib_fwd"] + tot["lib_bwd"]
+        print(f"K3 {cell}, the 21 layers of a step: fwd {tot['fwd']:.3f} + "
+              f"bwd {tot['bwd']:.3f} = {k3:.3f} ms, bound {bound:.3f} ms "
+              f"({bound / k3:.1%}); plain {tot['plain']:.3f} ms; library "
+              f"{tot['lib_fwd']:.3f} + {tot['lib_bwd']:.3f} = {lib:.3f} ms")
+        out[cell] = tot
+    return out, worst
+
+
 def phase_serve():
     """Three requests through the fused uint8 -> joints predictor."""
     predict = load_sbp_predictor(CFG, None)
@@ -755,11 +911,11 @@ def _recording(step, losses):
 
 def phase_train_fit(cfg, dm, save_dir, kind, steps):
     """Fit one epoch, validate, save; resume from ``last`` for a second
-    epoch in a new Trainer.  Returns the kernels' launches over both fits
-    and the resumed trainer."""
+    epoch in a new Trainer.  Checks K3's launches over both fits (21 BN
+    layers a train step, none in the validations).  Returns K1's and K2's
+    launches over both fits and the resumed trainer."""
     cfg = dict(cfg, save_dir=save_dir)
-    for kern in kernels.KERNELS:
-        kern.launches = 0
+    _zero_launches()
     losses = []
     t0 = time.perf_counter()
     first = Trainer(cfg, dm, kind=kind)
@@ -778,6 +934,7 @@ def phase_train_fit(cfg, dm, save_dir, kind, steps):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {kern.__name__: kern.launches for kern in kernels.KERNELS}
+    check_k3(f"train_{kind}", 2 * steps)
     check(second.state.step == 2 * steps,
           f"train {kind}: the resumed run ended at step {second.state.step}")
     losses = torch.stack(losses).float().cpu()
@@ -788,7 +945,7 @@ def phase_train_fit(cfg, dm, save_dir, kind, steps):
           f"builds, validation and 6 checkpoint writes included); losses "
           f"{float(losses[0]):.4f} ... {float(losses[-1]):.4f}, all finite; "
           f"step continued {steps} -> {second.state.step}; launches "
-          f"{launches}")
+          f"{launches}, K3 {_k3_counts()}")
     return launches, second
 
 
@@ -1180,13 +1337,14 @@ def phase_spm_geometric(dm):
 
 
 def phase_spm(path, batch, rng, tmp):
-    """Phase 7: SPM at full width.  No kernel may launch in it."""
+    """Phase 7: SPM at full width.  Neither K1 nor K2 may launch in it;
+    K3 only in the train steps."""
     cfg = dict(SPM_CFG, val_path=path)
-    for kern in kernels.KERNELS:
-        kern.launches = 0
+    _zero_launches()
     phase_spm_serve(cfg)
     phase_spm_eval(cfg, batch)
     spm_gt_probe()
+    check_k3("serve_eval_spm", 0)
     joints, centers = _spm_people(rng, 64)
     dm = _MemoryData(
         {"image": rng.randint(0, 256, (64, S_IN, S_IN, 3), dtype=np.uint8),
@@ -1375,8 +1533,7 @@ def phase_pis_harness(cfg, ckpt, rng):
 def phase_pis(sbp_last, rng, tmp):
     """Phase 8: PIS at full width (see the module docstring).  Returns the
     kernels' launches over the phase."""
-    for kern in kernels.KERNELS:
-        kern.launches = 0
+    _zero_launches()
     path, batch = _eval_set(tmp, B, rng, PIS_K,
                             "pis_person_keypoints_val.json")
     cfg = dict(PIS_CFG, val_path=path)
@@ -1525,16 +1682,16 @@ def phase_classifier_learns(dm):
 
 
 def phase_classifier(tmp, rng):
-    """Phase 9: the darknet19 classifier (see the module docstring).  No
-    kernel may launch in it."""
-    for kern in kernels.KERNELS:
-        kern.launches = 0
+    """Phase 9: the darknet19 classifier (see the module docstring).
+    Neither K1 nor K2 may launch in it; K3 only in the train steps."""
+    _zero_launches()
     dm = _MemoryClasses(rng, CLS_STEPS * 256, 256)
     cfg = dict(CLS_CFG, save_dir=os.path.join(tmp, "saved_cls"))
     t0 = time.perf_counter()
     state = train_classifier.train(cfg, dm)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    check_k3("train_classifier", CLS_STEPS, CLS_BN_LAYERS)
     ckpts = os.path.join(tmp, "saved_cls", "darknet19_tiny-imagenet",
                          "version_0", "checkpoints")
     names = sorted(os.listdir(ckpts))
@@ -1585,11 +1742,7 @@ SYNTH_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 def _synth_fixture():
     """This checkout's tests/synth_fixture.py (it imports cv2), loaded by
     its path: the script runs phase 10 from a temporary directory."""
-    spec = importlib.util.spec_from_file_location("synth_fixture",
-                                                  SYNTH_FIXTURE)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+    return _load_path("synth_fixture", SYNTH_FIXTURE)
 
 
 class _Tee(io.TextIOBase):
@@ -1682,8 +1835,7 @@ def phase_cached_fit(root, cfg):
     train and eval step and K2 once per eval step, finite losses.  Returns
     the launches and the epochs' img/s."""
     dm = _sbp_data(root, cfg)
-    for kern in kernels.KERNELS:
-        kern.launches = 0
+    _zero_launches()
     trainer = Trainer(cfg, dm)
     check(dm.clahe_prob == 0.0 and trainer.augment.get("clahe_prob") == 0.5,
           f"cached fit: host CLAHE {dm.clahe_prob}, device CLAHE "
@@ -1769,7 +1921,7 @@ def phase_stream_fit(root, cfg, native_ok):
 def phase_spm_cached(tmp, synth):
     """10e: SPM with ``cache_device`` at spm_coco.yaml's widths (512x512,
     batch 32) on 64 JPEG images, one epoch with validation: the memo holds
-    image, joints and centers; no kernel launches."""
+    image, joints and centers; no launch of K1 or K2."""
     root = os.path.join(tmp, "spm_jpeg")
     train = synth.make_dataset(root, "train2017", SPM_CACHE_IMAGES, seed=12)
     val = synth.make_dataset(root, "val2017", 8, seed=13)
@@ -2023,8 +2175,7 @@ def _rank_fit(spec):
     checkpoint._save_atomic = lambda obj, path: (writes.append(path),
                                                  save(obj, path))
     _capture_metrics(metrics)
-    for kern in kernels.KERNELS:
-        kern.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     trainers = [Trainer(cfg, dm, device=device),
                 Trainer(dict(cfg, epochs=3), dm, device=device)]
@@ -2247,8 +2398,7 @@ def phase_learns(tmp, device="cuda", max_rounds=LEARN_ROUNDS,
     root = os.path.join(tmp, "conv16")
     convergence.make_sets(root, SYNTH_FIXTURE)
     cfg = convergence.recipe_cfg(root)
-    for kern in kernels.KERNELS:
-        kern.launches = 0
+    _zero_launches()
     out = io.StringIO()  # the Trainer's 4 epoch lines a round
     try:
         with contextlib.redirect_stdout(out):
@@ -2347,8 +2497,7 @@ def phase_spm_ref(tmp, device="cuda"):
     if device == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    for kern in kernels.KERNELS:
-        kern.launches = 0
+    _zero_launches()
     state, text, vals, val_s, dt = _ref_fit(cfg, device)
     launches = _counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
@@ -2576,8 +2725,7 @@ def phase_spatial(tmp, device="cuda", ranks_on=SPATIAL_RANKS, sbp_cfg=CFG,
     """Phase 14 (see the module docstring).  Returns the kernels'
     launches over the phase."""
     start = time.perf_counter()
-    for kern in kernels.KERNELS:
-        kern.launches = 0
+    _zero_launches()
     bf16_cfg = dict(sbp_cfg, precision="bf16")
     sbp_cfg = dict(sbp_cfg, precision="fp32")
     spm_cfg = dict(spm_cfg, precision="fp32")
@@ -2734,8 +2882,7 @@ def phase_spm_hard(tmp, device="cuda"):
     if device == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    for kern in kernels.KERNELS:
-        kern.launches = 0
+    _zero_launches()
     state, text, vals, val_s, dt = _ref_fit(cfg, device)
     launches = _counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
@@ -2865,8 +3012,7 @@ def phase_image_ops(tmp, device="cuda"):
               and gap <= IMAGE_TOL,
               f"16: {label}: card vs CPU gap {gap} > {IMAGE_TOL}")
 
-    for kern in kernels.KERNELS:
-        kern.launches = 0
+    _zero_launches()
     model = load_model(CFG, None, device)
     want = model.state_dict()
     path = checkpoint.save_params(os.path.join(tmp, "sbp_params.pt"), want)
@@ -2904,6 +3050,7 @@ def main():
     k2_err, k2_rows = phase_k2(gen)
     k1_err11, k2_err11, _ = phase_k11(gen)
     k1_err, k2_err = max(k1_err, k1_err11), max(k2_err, k2_err11)
+    k3_rows, k3_err = phase_k3()
 
     rng = np.random.RandomState(0)
     cwd = os.getcwd()
@@ -2912,8 +3059,7 @@ def main():
         cfg = dict(CFG, val_path=path)
         os.chdir(tmp)  # the metric writes results.json to the cwd
         try:
-            for kern in kernels.KERNELS:
-                kern.launches = 0
+            _zero_launches()
             phase_serve()
             phase_eval(batch, cfg)
             launches = {kern.__name__: kern.launches
@@ -2921,6 +3067,7 @@ def main():
             print(f"serve and eval launches: {launches}")
             check(all(n > 0 for n in launches.values()),
                   f"a kernel of the main path never launched: {launches}")
+            check_k3("serve_eval_sbp", 0)
             gt_probe(batch, cfg)
             fp32_cross_check(CFG, "sbp", (1, 256, 192, 3))
             train_launches, sbp_last = phase_sbp_train(path, batch, rng, tmp)
@@ -2971,6 +3118,18 @@ def main():
             "pytorch_pose_estimation_tpu_torch/csrc/decode.cu",
             "pytorch_pose_estimation_tpu/ops/pallas/decode.py:61",
             k2_err, k2_rows),
+        {"name": "bn_act_cuda", "route": "cuda",
+         "source": "pytorch_pose_estimation_tpu_torch/csrc/bn_act.cu",
+         "replaces": None,
+         "launches": K3_LAUNCHES,
+         "unequal_share": {"y": k3_err[0], "dx": k3_err[1]},
+         "ms": {c: r["fwd"] + r["bwd"] for c, r in k3_rows.items()},
+         "plain_ms": {c: r["plain"] for c, r in k3_rows.items()},
+         "bound_ms": {c: r["fwd_bound"] + r["bwd_bound"]
+                      for c, r in k3_rows.items()},
+         "bound_by": "bytes",
+         "library_ms": {c: r["lib_fwd"] + r["lib_bwd"]
+                        for c, r in k3_rows.items()}},
     ]}
     print(card)
     print(json.dumps(report))

@@ -8,16 +8,29 @@ fp32 and casts its output back to bf16, as the JAX blocks do.  BN uses
 eps=1e-5 and torch momentum 0.1 (flax momentum 0.9), and updates its
 running variance with the biased batch variance, as flax does
 (``BatchNorm2d``).
+
+In train mode on one CUDA device with bf16 compute, a block's BN and ReLU
+are one function instead (``BnAct``): the hand-written kernel K3
+(``csrc/bn_act.cu``) reads the bf16 convolution output and writes the bf16
+block output, with the statistics, normalisation and ReLU in fp32, and
+saves only the bf16 input and four floats a channel for the backward.
+Every other case (eval mode, fp32 models, CPU tensors, several ranks)
+runs the unfused chain above.  ``tracing`` counts ``bn.fused`` for each K3
+forward and ``bn.unfused`` for each train-mode call of the unfused BN:
+calls, not layers, so under ``remat`` the forwards that the backward runs
+again count again.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import tracing
+from ..ops import kernels
 from ..parallel import mesh
 
 _DIMS = (0, 2, 3)  # every axis but the channels'
@@ -94,6 +107,7 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        tracing.count("bn.unfused")
         if mesh.world_size() > 1:
             return self._cross_replica(x)
         n = x.numel() // x.shape[1]
@@ -118,6 +132,105 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.mul_(1 - m).add_(var, alpha=m)
             self.num_batches_tracked.add_(1)
         return out
+
+
+def bn_act_forward_plain(x: torch.Tensor, weight: torch.Tensor,
+                         bias: torch.Tensor, running_mean: torch.Tensor,
+                         running_var: torch.Tensor,
+                         num_batches_tracked: torch.Tensor, momentum: float,
+                         eps: float, relu: bool
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's forward in plain PyTorch: train-mode BatchNorm (+ ReLU) of x
+    [N, C, H, W] bf16 -> (y bf16, stats [4, C] fp32: mean, invstd,
+    scale = weight * invstd, shift = bias - mean * scale).  The batch
+    variance is two-pass and biased; the running statistics follow flax's
+    rule in place.  fp32 inside; y = max(x * scale + shift, 0)."""
+    n = x.numel() // x.shape[1]
+    if n < 2:
+        raise ValueError("BatchNorm needs more than one value per channel "
+                         f"in train mode, got input {tuple(x.shape)}")
+    with torch.no_grad():
+        xf = x.float()
+        mean = xf.mean(_DIMS)
+        var = (xf - _channel(mean)).square().mean(_DIMS)
+        invstd = 1.0 / torch.sqrt(var + eps)
+        scale = weight * invstd
+        shift = bias - mean * scale
+        v = xf * _channel(scale) + _channel(shift)
+        y = F.relu(v) if relu else v
+        running_mean.mul_(1 - momentum).add_(mean, alpha=momentum)
+        running_var.mul_(1 - momentum).add_(var, alpha=momentum)
+        num_batches_tracked.add_(1)
+    return y.to(x.dtype), torch.stack([mean, invstd, scale, shift])
+
+
+def bn_act_backward_plain(dy: torch.Tensor, x: torch.Tensor,
+                          stats: torch.Tensor, relu: bool
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3's backward in plain PyTorch: (dx in x's dtype, dweight, dbias
+    fp32).  g = dy where x * scale + shift > 0 (the forward's ReLU mask;
+    everywhere without the ReLU); dx = scale * (g - mean(g) - xhat *
+    mean(g * xhat)), xhat = (x - mean) * invstd."""
+    with torch.no_grad():
+        mean, invstd, scale, shift = (_channel(s) for s in stats)
+        xf, g = x.float(), dy.float()
+        if relu:
+            g = torch.where(xf * scale + shift > 0, g, torch.zeros_like(g))
+        xhat = (xf - mean) * invstd
+        dbias = g.sum(_DIMS)
+        dweight = (g * xhat).sum(_DIMS)
+        n = x.numel() // x.shape[1]
+        dx = scale * (g - _channel(dbias / n) - xhat * _channel(dweight / n))
+    return dx.to(x.dtype), dweight, dbias
+
+
+class BnAct(torch.autograd.Function):
+    """Train-mode ``BatchNorm2d`` (+ ReLU) of a bf16 activation as one
+    function: ``BnAct.apply(x, bn.weight, bn.bias, bn, relu)`` (``bn_act``)
+    -> y in x's dtype, with the
+    statistics, normalisation, ReLU and parameter gradients in fp32 and
+    ``bn``'s running statistics updated as its own train mode does.
+    Saves x and four floats a channel.  K3 on a CUDA tensor, the plain
+    version on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, bn, relu):
+        fwd = kernels.bn_act_forward_cuda if x.is_cuda \
+            else bn_act_forward_plain
+        y, stats = fwd(x, weight, bias, bn.running_mean, bn.running_var,
+                       bn.num_batches_tracked, bn.momentum, bn.eps, relu)
+        ctx.save_for_backward(x, stats)
+        ctx.relu = relu
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, stats = ctx.saved_tensors
+        bwd = kernels.bn_act_backward_cuda if x.is_cuda \
+            else bn_act_backward_plain
+        dx, dweight, dbias = bwd(dy.contiguous(), x, stats, ctx.relu)
+        return dx, dweight, dbias, None, None
+
+
+def bn_act(x: torch.Tensor, bn: "BatchNorm2d", relu: bool) -> torch.Tensor:
+    """``BnAct`` of x through ``bn``."""
+    return BnAct.apply(x, bn.weight, bn.bias, bn, relu)
+
+
+def _block_out(x: torch.Tensor, bn: "BatchNorm2d",
+               activation: Optional[Callable], dtype: torch.dtype
+               ) -> torch.Tensor:
+    """A block's BN and activation of its convolution's output x (in
+    ``dtype``), returned in ``dtype``: K3 in train mode on one CUDA device
+    in bf16 with ReLU or no activation, else the unfused chain."""
+    if bn.training and x.is_cuda and dtype == torch.bfloat16 \
+            and activation in (F.relu, None) and mesh.world_size() == 1:
+        tracing.count("bn.fused")
+        return bn_act(x.contiguous(), bn, activation is F.relu)
+    x = bn(x.float())
+    if activation is not None:
+        x = activation(x)
+    return x.to(dtype)
 
 
 class ConvBnAct(nn.Module):
@@ -145,10 +258,7 @@ class ConvBnAct(nn.Module):
         c = self.conv
         x = F.conv2d(x.to(self.dtype), c.weight.to(self.dtype), None,
                      c.stride, padding)
-        x = self.bn(x.float())
-        if self.activation is not None:
-            x = self.activation(x)
-        return x.to(self.dtype)
+        return _block_out(x, self.bn, self.activation, self.dtype)
 
 
 def ConvBnRelu(in_channels: int, out_channels: int, kernel_size: int = 3,
@@ -195,7 +305,7 @@ class DeconvBnRelu(nn.Sequential):
                                None, deconv.stride, deconv.padding)
         if rows is not None:
             x = x[:, :, rows]
-        return F.relu(bn(x.float())).to(self.dtype)
+        return _block_out(x, bn, F.relu, self.dtype)
 
 
 def max_pool_2x2() -> nn.MaxPool2d:

@@ -36,7 +36,8 @@ from flax import linen as fnn
 
 from pytorch_pose_estimation_tpu.parallel import batch_sharding, make_mesh
 from pytorch_pose_estimation_tpu_torch import parallel
-from pytorch_pose_estimation_tpu_torch.models.layers import BatchNorm2d
+from pytorch_pose_estimation_tpu_torch.models.layers import (
+    BatchNorm2d, bn_act_forward_plain)
 
 import _torch_parallel_worker as W
 
@@ -134,6 +135,23 @@ def test_port_variance_is_near_float64_and_jax_default_is_not(name):
           f"torch's sums {rel:.1e}; XLA's E[x] "
           f"{np.max(np.abs(mean - x.astype(np.float64).mean((0, 1, 2)))):.1e}"
           f" off the float64 mean")
+
+
+@pytest.mark.parametrize("name", sorted(INPUTS))
+def test_fused_plain_variance_is_near_float64(name):
+    """The same standard for K3's plain version, on the inputs rounded to
+    bf16 as K3 takes them: its batch variance (the running variance after
+    one update at momentum 1) within 2e-5 of the float64 variance of the
+    bf16 values, as two passes give it."""
+    x = torch.from_numpy(_nchw(_inputs(name)[0])).to(torch.bfloat16)
+    c = SHAPE[-1]
+    running_var = torch.zeros(c)
+    bn_act_forward_plain(x, torch.ones(c), torch.zeros(c), torch.zeros(c),
+                         running_var, torch.zeros((), dtype=torch.int64),
+                         1.0, EPS, True)
+    exact = x.double().var((0, 2, 3), unbiased=False).numpy()
+    err = float(np.max(np.abs(running_var.numpy() - exact) / exact))
+    assert err <= 2e-5, err
 
 
 def _flax_two_pass(x, g, w, b, mesh=None):
