@@ -25,18 +25,20 @@ import numpy as np
 import torch
 
 from posebench import harness, judge, trace, traffic, work
-from posebench.reference import model as ref_model
 
 TRACE_PATH = harness.ROOT / "build" / "posebench" / "trace.json"
 REF_BLOCK = 64
 
 
-def port_config(config: dict) -> dict:
-    return {"num_keypoints": config["num_keypoints"],
-            "precision": config["precision"],
-            "input_size": config["input_size"],
-            "conf_threshold": config["conf_threshold"], "seed": 0,
-            "remat": False}
+def port_config(config: dict, net) -> dict:
+    """The predictor's configuration, with the keys that the network
+    ``net`` adds (``port_keys``)."""
+    cfg = {k: config[k] for k in net.port_keys if k in config}
+    cfg.update(num_keypoints=config["num_keypoints"],
+               precision=config["precision"],
+               input_size=config["input_size"],
+               conf_threshold=config["conf_threshold"], seed=0, remat=False)
+    return cfg
 
 
 @torch.no_grad()
@@ -44,14 +46,12 @@ def served_weights(cell: harness.Cell, crops: np.ndarray,
                    device: torch.device) -> dict:
     """Seeded weights with BN running statistics from the batch statistics
     of the first ``calibration`` crops (fp32 reference, TF32 off)."""
-    cfg = cell.config
-    k = int(cfg["num_keypoints"])
-    weights = ref_model.cell_weights(cfg, cell.seed, device)
+    weights = harness.cell_weights(cell, device)
     x = torch.from_numpy(crops[:int(cell.workload["calibration"])]).to(device)
     stats = {}
     with _no_tf32():
-        ref_model.forward(weights, x.permute(0, 3, 1, 2).float() / 255.0,
-                          "sbp", k, True, stats=stats)
+        cell.net.forward(weights, x.permute(0, 3, 1, 2).float() / 255.0,
+                         cell.config, True, stats=stats)
     weights.update(stats)
     return weights
 
@@ -78,7 +78,8 @@ def load_predictor(cell: harness.Cell, weights: dict, device):
         path = f"/proc/self/fd/{fd}"
         with open(path, "wb") as f:
             torch.save({k: v.cpu() for k, v in weights.items()}, f)
-        return load_sbp_predictor(port_config(cell.config), path, device)
+        return load_sbp_predictor(port_config(cell.config, cell.net), path,
+                                  device)
     finally:
         os.close(fd)
 
@@ -158,8 +159,7 @@ def run(cell: harness.Cell, t_start: float) -> harness.Outcome:
         reduced = trace.profile(requests, TRACE_PATH)
         out.measured = {
             "entry": "infer", "requests_per_s": len(served) / seconds,
-            "flops_per_request": n * work.forward_flops(
-                "sbp", cfg["input_size"], k),
+            "flops_per_request": n * cell.net.forward_flops(cfg),
             "chips": cell.chips, "latency_ms": lat,
             "k2_bytes": work.sbp_decode_bytes(n, k, oh, ow),
             "ops": reduced["ops"], "busy_s": reduced["busy_s"],
@@ -183,13 +183,12 @@ def reference_logits(cell: harness.Cell, crops: np.ndarray, idx,
                      device, quant=None) -> np.ndarray:
     """The reference's fp32 logits of ``crops[idx]``, in blocks."""
     weights = served_weights(cell, crops, device)
-    k = int(cell.config["num_keypoints"])
     out = []
     with torch.no_grad(), _no_tf32():
         for s in range(0, len(idx), REF_BLOCK):
             x = torch.from_numpy(crops[idx[s:s + REF_BLOCK]]).to(device)
-            out.append(ref_model.forward(
-                weights, x.permute(0, 3, 1, 2).float() / 255.0, "sbp", k,
+            out.append(cell.net.forward(
+                weights, x.permute(0, 3, 1, 2).float() / 255.0, cell.config,
                 False, quant).cpu())
     return torch.cat(out).numpy()
 

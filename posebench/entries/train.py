@@ -25,7 +25,6 @@ from typing import Dict, List, Optional
 import torch
 
 from posebench import harness, judge, trace, traffic, work
-from posebench.reference import model as ref_model
 from posebench.reference import train as ref_train
 
 # the port's Trainer keys that a configuration file carries
@@ -36,10 +35,12 @@ PORT_KEYS = ("num_keypoints", "precision", "input_size", "output_size",
 TRACE_PATH = harness.ROOT / "build" / "posebench" / "trace.json"
 
 
-def port_config(config: dict) -> dict:
+def port_config(config: dict, net) -> dict:
     """The Trainer's configuration: the file's sizes, precision,
-    optimizer and augmentation, the device cache on."""
-    cfg = {k: config[k] for k in PORT_KEYS if k in config}
+    optimizer and augmentation, and the keys that the network ``net``
+    adds (``port_keys``), the device cache on."""
+    keys = PORT_KEYS + tuple(net.port_keys)
+    cfg = {k: config[k] for k in keys if k in config}
     cfg.update(seed=0, remat=False, cache_device=True,
                augment_options=dict(config["augment"]))
     return cfg
@@ -59,14 +60,15 @@ class Program:
             DeviceDataCache, Trainer)
 
         cfg, seed = cell.config, cell.seed
+        ref_train.rules(cfg)   # a rule the reference lacks fails here
         self.device = device
         self.kind = cfg["kind"]
         clock = harness.Stopwatch()
         self.arrays = traffic.cache_arrays(cell.traffic, cfg, seed)
         clock.lap("arrays")
-        self.weights = ref_model.cell_weights(cfg, seed, device)
-        self.trainer = Trainer(port_config(cfg), None, kind=self.kind,
-                               logging=False, device=device)
+        self.weights = harness.cell_weights(cell, device)
+        self.trainer = Trainer(port_config(cfg, cell.net), None,
+                               kind=self.kind, logging=False, device=device)
         self.trainer.model.load_state_dict(self.weights)
         opt = self.trainer.state.optimizer
         state = opt.state_dict()
@@ -194,13 +196,13 @@ def reference(cell: harness.Cell, arrays: dict, device: torch.device,
                                 cell.chips)
     batches = [{k: torch.from_numpy(v[r]).to(device)
                 for k, v in arrays.items()} for r in rows]
-    weights = ref_model.cell_weights(cfg, cell.seed, device)
+    weights = harness.cell_weights(cell, device)
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        return ref_train.run_steps(cfg, weights, batches,
+        return ref_train.run_steps(cfg, cell.net, weights, batches,
                                    harness.torch_seed(cell.seed, 4),
                                    int(cell.workload["start_step"]), quant)
     finally:
@@ -291,19 +293,18 @@ def run(cell: harness.Cell, t_start: float) -> harness.Outcome:
     out = harness.Outcome(attempted=first["steps"], failed=first["failed"])
     out.memory_peak_bytes = max(r["memory_peak_bytes"] for r in ranks)
     if cell.trace:
-        hw = cfg["input_size"]
-        hw = (hw, hw) if isinstance(hw, int) else hw
         reduced = first["reduced"]
         out.busy_s = sum(r["reduced"]["busy_s"] for r in ranks) / len(ranks)
         out.window_s = sum(r["reduced"]["window_s"] for r in ranks) / \
             len(ranks)
         out.measured = {
             "entry": "train", "images_per_s": images_per_s,
-            "flops_per_image": work.train_flops(
-                cfg["kind"], hw, int(cfg["num_keypoints"])),
+            "flops_per_image": cell.net.train_flops(cfg),
             "chips": cell.chips, "event_ms": first["event_ms"],
-            "ops": reduced["ops"], "busy_s": out.busy_s,
-            "window_s": out.window_s}
+            "ops": reduced["ops"], "trace_steps": int(wl["trace_steps"]),
+            "k3_bytes": work.bn_act_bytes(
+                b // cell.chips * cell.net.bn_act_elements(cfg)),
+            "busy_s": out.busy_s, "window_s": out.window_s}
         if cfg["kind"] == "sbp":
             oh, ow = cfg["output_size"]
             out.measured["k1_bytes"] = work.sbp_heatmap_bytes(

@@ -4,8 +4,9 @@ A cell is an entry of ``workloads`` in ``BENCHMARK.json``.  Everything
 that belongs to it is found by name: ``workloads/<cell>.json`` (the entry
 kind and the limits of the comparison), ``configs/<config>.json`` (the
 model's sizes), ``traffic/<traffic>.json`` (what the generator makes),
-``metrics/<metric>.py`` (one reader per per-layer metric) and
-``entries/<entry>.py`` (the driver of one kind of run).
+``metrics/<metric>.py`` (one reader per per-layer metric),
+``entries/<entry>.py`` (the driver of one kind of run) and
+``networks/<network>.py`` (the network that the configuration names).
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ ROOT = BENCH.parent
 # package the port was made from (compared whole: the port's own name
 # begins with the JAX package's)
 FORBIDDEN = ("jax", "jaxlib", "flax", "pytorch_pose_estimation_tpu")
+# the network of a configuration without a ``network`` key
+DEFAULT_NETWORK = "darknet19_pose"
 # build and kernel caches of the program and of torch, inside the checkout
 CACHE_DIRS = {"TORCH_EXTENSIONS_DIR": "torch_extensions",
               "TRITON_CACHE_DIR": "triton",
@@ -56,6 +59,12 @@ class Cell:
     seconds: float = 10.0
     trace: bool = False
     device: str = "cuda"
+    base: Path = BENCH
+
+    @property
+    def net(self):
+        """The module of the configuration's network (``network``)."""
+        return network(self.config, self.base)
 
 
 def load_cell(name: str, bench: Optional[dict] = None,
@@ -79,7 +88,7 @@ def load_cell(name: str, bench: Optional[dict] = None,
                  if (name in m["workloads"] if "workloads" in m
                      else m["moves"] in e2e_names)]
     return Cell(name, int(entry["chips"]), config, traffic, workload, e2e,
-                per_layer)
+                per_layer, base=base)
 
 
 def load_module(path: Path, name: str):
@@ -96,6 +105,23 @@ def metric_reader(name: str, base: Path = BENCH) -> Callable:
     module = load_module(base / "metrics" / f"{name}.py",
                          "posebench_metric_" + name.replace(".", "_"))
     return module.read
+
+
+def network(config: dict, base: Path = BENCH):
+    """``networks/<name>.py`` of the network that ``config`` names under
+    ``network`` (``DEFAULT_NETWORK`` where it names none): its seeded
+    weights, fp32 forward, parameter groups and work an image."""
+    name = config.get("network", DEFAULT_NETWORK)
+    if base == BENCH:
+        return importlib.import_module(f"posebench.networks.{name}")
+    return load_module(base / "networks" / f"{name}.py",
+                       f"posebench_network_{name}")
+
+
+def cell_weights(cell: Cell, device) -> Dict[str, object]:
+    """The cell's seeded fp32 weights, its network's, drawn from the run's
+    seed."""
+    return cell.net.weights(cell.config, torch_seed(cell.seed, 3), device)
 
 
 def entry_module(kind: str, base: Path = BENCH):

@@ -6,9 +6,10 @@ Train cells, over the checked steps (the reference runs the same steps),
 with each parameter's gap taken between the norms of the program's and
 the reference's tensors, as a share of the reference's norm of that
 parameter or of the median parameter's, whichever is larger, and the
-parameters in groups (``reference.model.parameter_groups``): the weights
-(convolutions, deconvolutions, the head), of which the deconvolutions
-and the head, and the BN scales and shifts:
+parameters in the groups of the configuration's network (its
+``groups``): the weights (``conv``: the trunk; ``deconv`` and ``head``:
+the output layers), of which the output layers, and the normalizations'
+scales and shifts (``bn``):
 
 * ``loss_gap``: the relative gap of the first step's loss;
 * ``logit_gap``: the first step's logits (this rank's rows), the norm of

@@ -56,17 +56,20 @@ def half_batch_loss():
 
 @contextlib.contextmanager
 def frozen_update():
-    """The optimizer's update is zero: the step leaves the parameters and
-    the momentum as they were."""
+    """Every optimizer's update is zero: the step leaves the parameters
+    and the optimizer's moments as they were."""
     from pytorch_pose_estimation_tpu_torch import optim
 
-    saved = optim.SGD._update
-    optim.SGD._update = lambda self, p, g, state, group, count: \
-        torch.zeros_like(p)
+    saved = {cls: cls.__dict__["_update"]
+             for cls in optim.ChainOptimizer.__subclasses__()}
+    for cls in saved:
+        cls._update = lambda self, p, g, state, group, count: \
+            torch.zeros_like(p)
     try:
         yield
     finally:
-        optim.SGD._update = saved
+        for cls, update in saved.items():
+            cls._update = update
 
 
 @contextlib.contextmanager

@@ -1,7 +1,8 @@
 """The pose network in plain PyTorch, float32, over a dict of tensors.
 
 Darknet19 features, three ConvTranspose(4, 2, 1) -> BN -> ReLU, a 1x1
-head, with the reference's state_dict keys (``work.layers``).  BatchNorm
+head, with the reference's state_dict keys (``work.layers``); the
+harness reaches it through ``networks/darknet19_pose.py``.  BatchNorm
 normalizes by the batch's mean and biased variance in train mode and by the
 running statistics in eval mode (eps 1e-5).  Seeded weights
 (``make_weights``) are lecun-normal, as the port's ``build_model`` draws
@@ -29,7 +30,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from posebench import harness, work
+from posebench import work
 
 BN_EPS = 1e-5
 _TRUNC_STD = 0.87962566103423978  # std of a unit normal cut at +-2
@@ -81,14 +82,6 @@ def make_weights(kind: str, num_keypoints: int, seed: int,
             out[bn + ".num_batches_tracked"] = torch.zeros(
                 (), dtype=torch.int64, device=device)
     return out
-
-
-def cell_weights(config: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """A cell's weights: its configuration's network and BN shift, drawn
-    from the run's seed."""
-    return make_weights(config["kind"], int(config["num_keypoints"]),
-                        harness.torch_seed(seed, 3), device,
-                        float(config["init"]["bn_shift"]))
 
 
 def parameter_groups(kind: str, num_keypoints: int) -> Dict[str, str]:

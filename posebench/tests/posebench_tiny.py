@@ -1,4 +1,8 @@
-"""Small cells for the CPU tests: the real files, shrunk."""
+"""Small cells for the CPU tests: the real files, shrunk; torch's count of
+a network's FLOPs."""
+
+import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from posebench import harness
 
@@ -22,11 +26,13 @@ CELLS = [w["name"] for w in harness.benchmark()["workloads"]] + \
     [w["name"] for w in PENDING]
 
 
-def tiny(name: str, seed: int = 3, seconds: float = 0.5) -> harness.Cell:
-    """The cell ``name`` at a size a CPU test can hold, in float32."""
-    bench = harness.benchmark()
-    bench["workloads"] += PENDING
-    c = harness.load_cell(name, bench)
+def tiny(name: str, seed: int = 3, seconds: float = 0.5, bench=None,
+         base=harness.BENCH) -> harness.Cell:
+    """The cell ``name`` (of ``bench``, with its files under ``base``) at
+    a size a CPU test can hold, in float32."""
+    bench = harness.benchmark() if bench is None else bench
+    bench = dict(bench, workloads=bench["workloads"] + PENDING)
+    c = harness.load_cell(name, bench, base)
     c.device, c.seconds, c.seed = "cpu", seconds, seed
     c.config["precision"] = "fp32"
     if c.config["kind"] == "sbp":
@@ -41,3 +47,19 @@ def tiny(name: str, seed: int = 3, seconds: float = 0.5) -> harness.Cell:
         c.workload.update(checked_requests=4, warmup_requests=2)
     c.workload["limits"] = dict(TINY_LIMITS[c.workload["entry"]])
     return c
+
+
+def flops_counted(net, cfg: dict):
+    """torch's count of one image's forward, and of its forward and
+    backward, through the network file's interface."""
+    w = net.weights(cfg, 0, "cpu")
+    leaves = [w[k].requires_grad_() for k in net.groups(cfg)]
+    size = cfg["input_size"]
+    hw = (size, size) if isinstance(size, int) else tuple(size)
+    x = torch.rand(1, 3, *hw)
+    with FlopCounterMode(display=False) as fwd:
+        y = net.forward(w, x, cfg, True)
+    with FlopCounterMode(display=False) as bwd:
+        torch.autograd.grad(y.square().sum(), leaves)
+    return fwd.get_total_flops(), fwd.get_total_flops() + \
+        bwd.get_total_flops()

@@ -45,9 +45,8 @@ def test_fault_is_not_correct(name, fault):
 def test_a_fault_confined_to_one_group_shows_in_its_number(hit, expect):
     """A gradient 20% off in one group of parameters alone (one deconv's
     weights, every convolution, every BN) moves that group's number."""
-    from posebench.reference import model
-
-    groups = model.parameter_groups("sbp", 17)
+    cell = tiny("sbp_train_b256")
+    groups = cell.net.groups(cell.config)
     ones = {k: 1.0 for k in groups}
     ref = {"losses": [1.0], "logits": torch.ones(2, 3), "groups": groups,
            "grad_norms": ones, "change_norms": ones}

@@ -18,6 +18,8 @@ from pytorch_pose_estimation_tpu_torch.train import (
     DeviceDataCache, Trainer, load_sbp_predictor)
 for m in harness.benchmark()["per_layer"]:
     harness.metric_reader(m["name"])
+for c in harness.benchmark()["configs"]:
+    harness.network(harness.read_json(harness.ROOT / c["file"]))
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 
@@ -25,6 +27,7 @@ LOAD_REFERENCE = """
 import sys, json
 sys.path.insert(0, {root!r})
 from posebench.reference import augment, model, targets, train
+from posebench.networks import darknet19_pose
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from pytorch_pose_estimation_tpu_torch import losses as port_losses
+from pytorch_pose_estimation_tpu_torch import optim as port_optim
 from pytorch_pose_estimation_tpu_torch.ops import image as port_image
 from pytorch_pose_estimation_tpu_torch.ops import targets as port_targets
 from pytorch_pose_estimation_tpu_torch.train import (DeviceDataCache,
@@ -16,7 +17,7 @@ from pytorch_pose_estimation_tpu_torch.train import steps as port_steps
 
 from posebench import harness, judge
 from posebench.entries import train as train_entry
-from posebench.reference import augment, model, targets
+from posebench.reference import augment, targets
 from posebench.reference import train as ref_train
 from posebench_tiny import tiny
 
@@ -144,7 +145,10 @@ def test_spm_maps_and_losses():
 
 @pytest.mark.parametrize("kind", ["sbp", "spm"])
 def test_network_matches_the_port_in_fp32(kind):
-    w = model.make_weights(kind, 17, 11, "cpu", bn_shift=1.0)
+    cfg = {"kind": kind, "num_keypoints": 17, "input_size": 64,
+           "init": {"bn_shift": 1.0}}
+    net = harness.network(cfg)
+    w = net.weights(cfg, 11, "cpu")
     port = build_model({"num_keypoints": 17, "precision": "fp32"}, kind)
     x = torch.rand(4, 3, 64, 64)
     for train in (True, False):
@@ -152,7 +156,7 @@ def test_network_matches_the_port_in_fp32(kind):
         port.train(train)
         with torch.no_grad():
             got = port(x)
-            want = model.forward(w, x, kind, 17, train)
+            want = net.forward(w, x, cfg, train)
         assert torch.allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
@@ -178,7 +182,72 @@ def test_first_step_and_update_match_the_port():
 
 
 def test_seeded_weights_are_lecun_normal():
-    w = model.make_weights("sbp", 17, harness.torch_seed(3, 3), "cpu")
+    cfg = tiny("sbp_train_b256").config
+    w = harness.network(cfg).weights(cfg, harness.torch_seed(3, 3), "cpu")
     k = w["backbone_features_module.5.3.conv.weight"]   # 1024 x 512 x 3 x 3
     assert k.std().item() == pytest.approx((1 / (512 * 9)) ** 0.5, rel=0.01)
     assert k.abs().max() <= 2 * (1 / (512 * 9)) ** 0.5 / 0.8796 + 1e-6
+
+
+# (optimizer, its options, schedule, its options, the first update count):
+# the cells' SGD, and Adam, AdamW and multi_step as mmpose's configurations
+# use them; each schedule's rate changes inside the three steps
+UPDATES = [
+    ("sgd", {"lr": 1e-3, "momentum": 0.9, "weight_decay": 5e-3,
+             "nesterov": True},
+     "yolo_lr", {"burn_in": 4, "steps": [4], "scales": [0.1]}, 2),
+    ("sgd", {"lr": 1e-2, "momentum": 0.9, "weight_decay": 1e-4},
+     "multi_step", {"milestones": [1, 2], "gamma": 0.1}, 0),
+    ("adam", {"lr": 5e-4}, "multi_step",
+     {"milestones": [171, 172], "gamma": 0.1}, 170),
+    ("adam", {"lr": 1e-3, "betas": [0.8, 0.99], "eps": 1e-6,
+              "weight_decay": 1e-4},
+     "yolo_lr", {"burn_in": 2, "steps": [3], "scales": [0.5]}, 1),
+    ("adamw", {"lr": 1e-3, "weight_decay": 0.05}, "multi_step",
+     {"milestones": [1], "gamma": 0.5}, 0),
+]
+
+
+@pytest.mark.parametrize("name,options,schedule,sched_options,start",
+                         UPDATES, ids=[f"{u[0]}-{u[2]}" for u in UPDATES])
+def test_update_rules_match_the_port(name, options, schedule, sched_options,
+                                     start):
+    """Three steps of the reference's rule and the port's optimizer from
+    the same parameters and gradients: each tensor's change agrees within
+    1e-6 of its norm."""
+    gen = torch.Generator().manual_seed(17)
+    shapes = [(64, 32, 3, 3), (64,), (17, 64, 1, 1)]
+    p0 = [torch.randn(s, generator=gen) * 0.1 for s in shapes]
+    grads = [[torch.randn(s, generator=gen) * 0.01 for s in shapes]
+             for _ in range(3)]
+    cfg = {"optimizer": name, "optimizer_options": options,
+           "scheduler": schedule, "scheduler_options": sched_options}
+    update, rate = ref_train.rules(cfg)
+    ref, state = [p.clone() for p in p0], [{} for _ in p0]
+    for i, gs in enumerate(grads):
+        lr = rate(start + i)
+        ref = [p - lr * update(p, g, st, start + i + 1)
+               for p, g, st in zip(ref, gs, state)]
+    opts = dict(options)
+    lr = opts.pop("lr")
+    params = [torch.nn.Parameter(p.clone()) for p in p0]
+    port = port_optim.get_optimizer(
+        name, params, lr=lr, schedule=port_optim.get_scheduler(
+            schedule, lr, **sched_options), **opts)
+    port.count = start
+    for gs in grads:
+        for p, g in zip(params, gs):
+            p.grad = g.clone()
+        port.step()
+    for p, r, q0 in zip(params, ref, p0):
+        change = r - q0
+        assert change.norm() > 0
+        assert (p.detach() - r).norm() <= 1e-6 * change.norm()
+
+
+def test_an_unknown_rule_names_its_key():
+    cfg = tiny("sbp_train_b256").config
+    for key, value in (("optimizer", "rmsprop"),
+                       ("scheduler", "cosine_annealing_warm_restarts")):
+        with pytest.raises(ValueError, match=f"'{key}'.*'{value}'"):
+            ref_train.rules(dict(cfg, **{key: value}))

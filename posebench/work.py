@@ -103,6 +103,17 @@ def sbp_decode_bytes(b: int, k: int, h: int, w: int) -> int:
     return b * k * h * w * 4 + b * k * 3 * 4
 
 
+def bn_act_bytes(elements: int) -> int:
+    """K3 (csrc/bn_act.cu), a train step over ``elements`` activation
+    elements of BN + ReLU layers, bf16, 16 B an element: forward, the
+    input read for the batch statistics and again to apply them, the
+    output written (6 B); backward, the output's gradient and the input
+    read for the gradient's sums and again to apply them, the input's
+    gradient written (10 B).  Batch statistics come before any output,
+    so a layer's tensors are read in two passes."""
+    return 16 * elements
+
+
 def roofline_percent(n_bytes: int, seconds_per_call: float) -> float:
     """Share of a memory-bound kernel's least time (its bytes at the HBM
     rate) in its measured time."""
